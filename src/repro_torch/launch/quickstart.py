@@ -1,0 +1,147 @@
+"""Serve diffusion requests stage by stage with the TridentServe planners.
+
+Counterpart of ``examples/quickstart.py``: the pipeline is built on the
+device from a seed, the Dynamic Orchestrator places stage replicas on the
+chips, the Resource-Aware Dispatcher dispatches the pending requests onto
+idle units, and each decision's Encode -> Diffuse -> Decode runs on the
+device with every stage timed.
+
+  PYTHONPATH=src python -m repro_torch.launch.quickstart --device cpu --smoke
+"""
+from __future__ import annotations
+
+import argparse
+import time
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch import device as _device
+from repro_torch.core.dispatcher import Dispatcher
+from repro_torch.core.orchestrator import Orchestrator
+from repro_torch.core.profiler import H100_SXM, Profiler
+from repro_torch.core.request import STAGES, Request
+from repro_torch.models import pipeline as pl
+
+
+class _StageTimer:
+    """Times a stage with CUDA events on the card, the host clock elsewhere."""
+
+    def __init__(self, dev: torch.device):
+        self.cuda = dev.type == "cuda"
+
+    def __enter__(self):
+        if self.cuda:
+            self.start = torch.cuda.Event(enable_timing=True)
+            self.end = torch.cuda.Event(enable_timing=True)
+            self.start.record()
+        else:
+            self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        if self.cuda:
+            self.end.record()
+        else:
+            self.host_ms = (time.perf_counter() - self.t0) * 1e3
+        return False
+
+    def ms(self) -> float:
+        if self.cuda:
+            self.end.synchronize()
+            return self.start.elapsed_time(self.end)
+        return self.host_ms
+
+
+def serve(cfg: pl.PipelineConfig, requests: Sequence[Request], device=None, seed: int = 0,
+          pipe: Optional[pl.Pipeline] = None) -> List[Dict]:
+    """Serve ``requests`` on one chip: ``device``, ``cuda`` by default.
+
+    Returns one record per request, in the order given: its output pixels,
+    the measured ms of each stage (``stage_ms``), the profiler's prediction
+    for the same stage on ``H100_SXM`` (``predicted_ms``) and the dispatch
+    decision. ``pipe`` may carry an already built pipeline; otherwise one is
+    built from ``seed``.
+    """
+    dev = _device.resolve(device)
+    if pipe is None:
+        pipe = pl.build(cfg, dev, seed)
+    prof = Profiler(cfg, hw=H100_SXM)
+    for r in requests:
+        if not r.deadline:
+            r.deadline = r.arrival + 2.5 * prof.pipeline_time(r)
+    plan = Orchestrator(prof, num_chips=1).generate(requests)
+    if plan is None:
+        raise RuntimeError(f"no feasible placement of {cfg.name} on one chip")
+    disp = Dispatcher(prof)
+
+    rng = np.random.default_rng(seed)
+    index = {r.rid: i for i, r in enumerate(requests)}
+    tokens = {r.rid: torch.from_numpy(rng.integers(0, cfg.encoder.vocab_size, size=r.cond_len))
+              for r in requests}
+    records: List[Optional[Dict]] = [None] * len(requests)
+    pending = list(requests)
+    idle = set(range(plan.num_units))
+    free_at = {g: 0.0 for g in idle}
+    t_start = time.perf_counter()
+    while pending:
+        tau = time.perf_counter() - t_start
+        decisions = disp.dispatch(pending, plan, idle, free_at, tau)
+        if not decisions:
+            raise RuntimeError(f"the dispatcher placed none of {len(pending)} pending requests")
+        for d in decisions:
+            batch = [d.request, *d.corequests]
+            req = d.request
+            toks = torch.stack([tokens[r.rid] for r in batch]).to(dev)
+            grid = cfg.latent_grid(req.resolution, req.seconds)
+            shape = (len(batch), cfg.latent_tokens(req.resolution, req.seconds),
+                     cfg.dit.latent_dim)
+            noise = torch.randn(shape, dtype=torch.float32, device=dev,
+                                generator=_device.generator(dev, seed + 1 + index[req.rid]))
+            timers = {s: _StageTimer(dev) for s in STAGES}
+            with timers["E"]:
+                cond = pl.encode(pipe, toks)
+            with timers["D"]:
+                lat = pl.diffuse(pipe, cond, shape, noise=noise)
+            with timers["C"]:
+                out = pl.decode(pipe, lat, grid)
+            stage_ms = {s: timers[s].ms() for s in STAGES}
+            k = prof.k_min
+            chips = {"E": max(1, len(d.e_units)) * k, "D": d.degree * k,
+                     "C": max(1, len(d.c_units)) * k}
+            frames = out.shape[0] // len(batch)
+            for j, r in enumerate(batch):
+                done = time.perf_counter() - t_start
+                for s in STAGES:
+                    r.stage_done[s] = done
+                records[index[r.rid]] = {
+                    "rid": r.rid, "resolution": r.resolution, "batch": len(batch),
+                    "output": out[j * frames:(j + 1) * frames],
+                    "stage_ms": stage_ms,
+                    "predicted_ms": {s: prof.stage_time(r, s, chips[s]) * 1e3 for s in STAGES},
+                    "decision": {"vr_type": d.vr_type, "degree": d.degree,
+                                 "d_units": d.d_units, "e_units": d.e_units,
+                                 "c_units": d.c_units},
+                }
+                pending.remove(r)
+    return records
+
+
+def main(argv: Optional[Sequence[str]] = None) -> None:
+    import repro_torch.configs as C
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    ap.add_argument("--smoke", action="store_true", help="the reduced sd3 pipeline")
+    args = ap.parse_args(argv)
+    cfg = C.get_smoke("sd3") if args.smoke else C.get("sd3")
+    res = (64, 128, 256) if args.smoke else (512, 1024, 1536)
+    for rec in serve(cfg, [Request(cfg.name, r) for r in res], device=args.device):
+        print(f"res={rec['resolution']} out={tuple(rec['output'].shape)} "
+              f"stage_ms={ {s: round(v, 3) for s, v in rec['stage_ms'].items()} } "
+              f"decision={rec['decision']}")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,178 @@
+"""Shared building blocks: config, init, norms, RoPE, attention math, MLPs.
+
+Counterpart of ``repro/models/common.py``, holding only what the ported
+slice uses. Weight matrices keep the reference's ``(d_in, d_out)`` layout,
+so a layer is ``x @ w`` and weights carry over without a transpose.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+
+# mixer kinds
+ATTN = "attn"                # full causal attention
+ATTN_LOCAL = "attn_local"    # sliding-window causal attention
+ATTN_CHUNKED = "attn_chunked"  # chunked local attention (llama4 iRoPE)
+ATTN_BIDIR = "attn_bidir"    # bidirectional (encoder)
+MAMBA2 = "mamba2"
+RWKV6 = "rwkv6"
+
+# ffn kinds
+FFN_DENSE = "dense"
+FFN_MOE = "moe"
+
+ATTN_KINDS = (ATTN, ATTN_LOCAL, ATTN_CHUNKED, ATTN_BIDIR)
+SSM_KINDS = (MAMBA2, RWKV6)
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    """The transformer config, with the fields the encoder slice reads.
+
+    ``layer_pattern`` is a cycle of ``"<mixer>:<ffn>"`` entries tiled to
+    ``num_layers``.
+    """
+
+    name: str
+    family: str                      # dense | moe | ssm | hybrid | vlm | audio
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0                # 0 -> d_model // num_heads
+    layer_pattern: Tuple[str, ...] = ("attn:dense",)
+    attn_softcap: float = 0.0        # attention-score softcap (gemma2: 50)
+    rope_theta: float = 10000.0
+    norm_eps: float = 1e-6
+    dtype: Any = torch.bfloat16
+    tie_embeddings: bool = False
+    source: str = ""
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or self.d_model // self.num_heads
+
+    def layer_kinds(self) -> Tuple[Tuple[str, str], ...]:
+        """Tile layer_pattern to num_layers -> ((mixer, ffn), ...)."""
+        out = []
+        for i in range(self.num_layers):
+            entry = self.layer_pattern[i % len(self.layer_pattern)]
+            mixer, _, ffn = entry.partition(":")
+            out.append((mixer, ffn or FFN_DENSE))
+        return tuple(out)
+
+
+# ---------------------------------------------------------------------------
+# Parameters and their seeded init
+# ---------------------------------------------------------------------------
+
+def param(shape: Sequence[int], dtype, device) -> torch.nn.Parameter:
+    """An uninitialised, frozen parameter (the slice is forward only)."""
+    return torch.nn.Parameter(torch.empty(tuple(shape), dtype=dtype, device=device),
+                              requires_grad=False)
+
+
+@torch.no_grad()
+def dense_init_(w: torch.Tensor, gen: torch.Generator, scale: float = 1.0,
+                fan_in: Optional[int] = None) -> None:
+    """Truncated-normal fan-in init in place; fan_in defaults to shape[0]
+    (the reference's rule, which for an HWIO kernel is its height)."""
+    fan = w.shape[0] if fan_in is None else fan_in
+    std = scale / math.sqrt(max(1, fan))
+    t = torch.empty(w.shape, dtype=torch.float32, device=w.device)
+    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    w.copy_(t * std)
+
+
+@torch.no_grad()
+def embed_init_(w: torch.Tensor, gen: torch.Generator) -> None:
+    t = torch.randn(w.shape, dtype=torch.float32, device=w.device, generator=gen)
+    w.copy_(t * 0.02)
+
+
+# ---------------------------------------------------------------------------
+# Norms and RoPE
+# ---------------------------------------------------------------------------
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    dtype = x.dtype
+    x = x.float()
+    var = torch.mean(x * x, dim=-1, keepdim=True)
+    x = x * torch.rsqrt(var + eps)
+    return (x * (1.0 + weight.float())).to(dtype)
+
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32, device=device)
+                            / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (..., L, H, Dh); positions: broadcastable to (..., L). Split halves."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)            # (Dh/2,)
+    angles = positions[..., None].float() * freqs               # (..., L, Dh/2)
+    angles = angles[..., None, :]                               # (..., L, 1, Dh/2)
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention math (plain path; the DiT's attention goes through kernels.ops)
+# ---------------------------------------------------------------------------
+
+def make_attention_mask(q_pos: torch.Tensor, kv_pos: torch.Tensor, kind: str,
+                        window: int = 0, chunk: int = 0) -> torch.Tensor:
+    """(Lq, Lkv) boolean mask; True = attend."""
+    q = q_pos[:, None]
+    k = kv_pos[None, :]
+    if kind == ATTN_BIDIR:
+        return torch.ones((q_pos.shape[0], kv_pos.shape[0]), dtype=torch.bool,
+                          device=q_pos.device)
+    causal = k <= q
+    if kind == ATTN:
+        return causal
+    if kind == ATTN_LOCAL:
+        return causal & (k > q - window)
+    if kind == ATTN_CHUNKED:
+        return causal & (k // chunk == q // chunk)
+    raise ValueError(f"unknown attention kind {kind!r}")
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: Optional[torch.Tensor],
+              attn_softcap_val: float = 0.0) -> torch.Tensor:
+    """q: (B, Lq, H, Dh); k/v: (B, Lkv, H, Dh); mask: (Lq, Lkv) or None.
+
+    Scores and softmax in f32; probabilities rounded to v's dtype for PV."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    if attn_softcap_val > 0:
+        scores = attn_softcap_val * torch.tanh(scores / attn_softcap_val)
+    if mask is not None:
+        scores = torch.where(mask[None, None], scores,
+                             torch.tensor(-1e30, dtype=scores.dtype, device=scores.device))
+    probs = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype), v)
+
+
+# ---------------------------------------------------------------------------
+# MLPs
+# ---------------------------------------------------------------------------
+
+def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+           w_down: torch.Tensor) -> torch.Tensor:
+    g = x @ w_gate
+    u = x @ w_up
+    return (F.silu(g.float()).to(x.dtype) * u) @ w_down
+
+
+def gelu_mlp(x: torch.Tensor, w_up: torch.Tensor, w_down: torch.Tensor) -> torch.Tensor:
+    h = F.gelu((x @ w_up).float(), approximate="tanh")
+    return h.to(x.dtype) @ w_down

@@ -1,0 +1,252 @@
+"""DiT diffusion transformer with AdaLN-Zero conditioning (Diffuse stage),
+its DDIM loop, and the AE-KL latent decoder (Decode stage).
+
+Counterpart of ``repro/models/diffusion.py``. Latent patches and text
+condition tokens form one joint stream; each block's shift/scale/gate
+modulation comes from the timestep embedding. ``DiT.forward`` always goes
+through the two kernel ops: ``flash_attention`` (non-causal) and
+``adaln_rmsnorm``. The decoder keeps the reference's NHWC layout at its
+public functions and runs its convolutions as plain ``F.conv2d``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.kernels import ops as kops
+from repro_torch.models import common
+from repro_torch.models.common import param
+
+
+@dataclasses.dataclass(frozen=True)
+class DiTConfig:
+    name: str
+    num_layers: int
+    d_model: int
+    num_heads: int
+    d_ff: int
+    latent_dim: int               # channels per latent token (after patchify)
+    cond_dim: int                 # encoder hidden size
+    time_embed_dim: int = 256
+    dtype: Any = torch.bfloat16
+    norm_eps: float = 1e-6
+    source: str = ""
+
+
+class DiTLayer(nn.Module):
+    def __init__(self, cfg: DiTConfig, device=None):
+        super().__init__()
+        d, dt = cfg.d_model, cfg.dtype
+        self.cfg = cfg
+        self.wq = param((d, d), dt, device)
+        self.wk = param((d, d), dt, device)
+        self.wv = param((d, d), dt, device)
+        self.wo = param((d, d), dt, device)
+        self.w_up = param((d, cfg.d_ff), dt, device)
+        self.w_down = param((cfg.d_ff, d), dt, device)
+        self.mod = param((d, 6 * d), dt, device)
+
+    @torch.no_grad()
+    def init_(self, gen: torch.Generator) -> None:
+        scale_o = 1.0 / max(1, self.cfg.num_layers) ** 0.5
+        for w in (self.wq, self.wk, self.wv, self.w_up):
+            common.dense_init_(w, gen)
+        common.dense_init_(self.wo, gen, scale=scale_o)
+        common.dense_init_(self.w_down, gen, scale=scale_o)
+        # AdaLN-Zero: modulation starts at zero, so every block starts as identity
+        self.mod.zero_()
+
+    def forward(self, x: torch.Tensor, tc: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        b, l, d = x.shape
+        h = cfg.num_heads
+        dh = d // h
+        mod = (tc @ self.mod).reshape(b, 6, d)
+        s1, sh1, g1, s2, sh2, g2 = (mod[:, i] for i in range(6))
+        hn = kops.adaln_rmsnorm(x, s1, sh1, eps=cfg.norm_eps)
+        q = (hn @ self.wq).reshape(b, l, h, dh)
+        k = (hn @ self.wk).reshape(b, l, h, dh)
+        v = (hn @ self.wv).reshape(b, l, h, dh)
+        a = kops.flash_attention(q, k, v, causal=False)
+        a = a.reshape(b, l, d) @ self.wo
+        x = x + g1[:, None, :] * a
+        hn = kops.adaln_rmsnorm(x, s2, sh2, eps=cfg.norm_eps)
+        f = common.gelu_mlp(hn, self.w_up, self.w_down)
+        return x + g2[:, None, :] * f
+
+
+def timestep_embedding(t: torch.Tensor, dim: int) -> torch.Tensor:
+    """Sinusoidal embedding, cos then sin; t: (B,) float in [0, 1000]."""
+    half = dim // 2
+    freqs = torch.exp(-math.log(10000.0)
+                      * torch.arange(half, dtype=torch.float32, device=t.device) / half)
+    args = t.float()[:, None] * freqs[None]
+    return torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
+
+
+class DiT(nn.Module):
+    def __init__(self, cfg: DiTConfig, device=None):
+        super().__init__()
+        d, dt = cfg.d_model, cfg.dtype
+        self.cfg = cfg
+        self.x_in = param((cfg.latent_dim, d), dt, device)
+        self.cond_in = param((cfg.cond_dim, d), dt, device)
+        self.t_mlp1 = param((cfg.time_embed_dim, d), dt, device)
+        self.t_mlp2 = param((d, d), dt, device)
+        self.layers = nn.ModuleList(DiTLayer(cfg, device) for _ in range(cfg.num_layers))
+        self.final_mod = param((d, 2 * d), dt, device)
+        self.x_out = param((d, cfg.latent_dim), dt, device)
+        self.pos_freq = param((2, d // 2), torch.float32, device)
+
+    @torch.no_grad()
+    def init_(self, gen: torch.Generator) -> None:
+        for w in (self.x_in, self.cond_in, self.t_mlp1, self.t_mlp2):
+            common.dense_init_(w, gen)
+        for layer in self.layers:
+            layer.init_(gen)
+        self.final_mod.zero_()
+        common.dense_init_(self.x_out, gen, scale=0.02)
+        common.dense_init_(self.pos_freq, gen, scale=1.0)
+
+    def forward(self, latents: torch.Tensor, t: torch.Tensor, cond: torch.Tensor,
+                cond_pooled: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """One denoising network evaluation.
+
+        latents: (B, Lx, latent_dim); t: (B,); cond: (B, Lc, cond_dim).
+        Returns predicted noise (B, Lx, latent_dim) in float32.
+        """
+        cfg = self.cfg
+        dt = cfg.dtype
+        lc = cond.shape[1]
+        x = latents.to(dt) @ self.x_in
+        c = cond.to(dt) @ self.cond_in
+        x = torch.cat([c, x], dim=1)                               # joint stream
+        l = x.shape[1]
+
+        # absolute 2-channel sin/cos positions (latent grid is 1D-flattened here)
+        pos = torch.arange(l, dtype=torch.float32, device=x.device)
+        pf = self.pos_freq.float()
+        pe = torch.cat([torch.sin(pos[:, None] * pf[0][None]),
+                        torch.cos(pos[:, None] * pf[1][None])], dim=-1)
+        x = x + pe[None].to(dt)
+
+        temb = timestep_embedding(t, cfg.time_embed_dim)
+        tc = temb.to(dt) @ self.t_mlp1
+        if cond_pooled is not None:
+            tc = tc + cond_pooled.to(dt)
+        tc = F.silu(tc.float()).to(dt) @ self.t_mlp2
+
+        for layer in self.layers:
+            x = layer(x, tc)
+        fmod = (tc @ self.final_mod).reshape(x.shape[0], 2, cfg.d_model)
+        x = kops.adaln_rmsnorm(x, fmod[:, 0], fmod[:, 1], eps=cfg.norm_eps)
+        return (x[:, lc:, :] @ self.x_out).float()
+
+
+def jax_linspace(start: float, stop: float, num: int) -> torch.Tensor:
+    """float32 ``linspace`` with the reference's arithmetic,
+    ``start * (1 - step) + stop * step`` with ``step = i * (1 / div)`` (its
+    compiler turns the division by a constant into that product), then the
+    endpoint. Truncated to integers it gives the reference's timesteps
+    exactly; ``torch.linspace`` gives 666 where the reference gives 665 at
+    n=4."""
+    if num == 1:
+        return torch.tensor([start], dtype=torch.float32)
+    div = num - 1
+    recip = torch.tensor(1.0, dtype=torch.float32) / torch.tensor(div, dtype=torch.float32)
+    step = torch.arange(div, dtype=torch.float32) * recip
+    a = torch.tensor(start, dtype=torch.float32)
+    z = torch.tensor(stop, dtype=torch.float32)
+    out = a * (1 - step) + z * step
+    return torch.cat([out, z[None]])
+
+
+def ddim_timesteps(num_steps: int) -> list:
+    """The integer timesteps of the DDIM loop, ``linspace(999, 0, n)`` truncated."""
+    return jax_linspace(999, 0, num_steps).to(torch.int32).tolist()
+
+
+@torch.no_grad()
+def ddim_denoise(dit: DiT, noise: torch.Tensor, cond: torch.Tensor,
+                 num_steps: int) -> torch.Tensor:
+    """Multi-step denoising loop (the Diffuse stage's runtime body).
+
+    DDIM with a linear alpha-bar schedule; deterministic (eta=0).
+    """
+    betas = jax_linspace(1e-4, 0.02, 1000)
+    alpha_bar = torch.cumprod(1.0 - betas, dim=0).to(noise.device)
+    ts = ddim_timesteps(num_steps)
+    one = torch.ones((), dtype=torch.float32, device=noise.device)
+    x = noise
+    for i, t in enumerate(ts):
+        t_next = ts[i + 1] if i + 1 < num_steps else -1
+        ab_t = alpha_bar[t]
+        ab_n = alpha_bar[t_next] if t_next >= 0 else one
+        tb = torch.full((x.shape[0],), float(t), dtype=torch.float32, device=x.device)
+        eps = dit(x, tb, cond)
+        x0 = (x - torch.sqrt(1 - ab_t) * eps) / torch.sqrt(ab_t)
+        x = torch.sqrt(ab_n) * x0 + torch.sqrt(1 - ab_n) * eps
+    return x
+
+
+# ---------------------------------------------------------------------------
+# AE-KL latent decoder (Decode stage) — conv upsampler, memory-bound
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class DecoderConfig:
+    name: str
+    latent_channels: int
+    base_channels: int = 512
+    num_upsamples: int = 3        # 8x spatial upscale
+    res_blocks: int = 2           # residual conv blocks per level
+    out_channels: int = 3
+    dtype: Any = torch.bfloat16
+    source: str = ""
+
+
+class Decoder(nn.Module):
+    """The reference's ``decode_latent`` as a module. Conv weights are OIHW
+    here (HWIO in the reference); activations stay NHWC at its edges."""
+
+    def __init__(self, cfg: DecoderConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        ch, dt = cfg.base_channels, cfg.dtype
+        self.conv_in = param((ch, cfg.latent_channels, 3, 3), dt, device)
+        for i in range(cfg.num_upsamples):
+            cin = max(ch // (2 ** i), 32)
+            cout = max(ch // (2 ** (i + 1)), 32)
+            setattr(self, f"up{i}_in", param((cout, cin, 3, 3), dt, device))
+            for r in range(cfg.res_blocks):
+                setattr(self, f"up{i}_res{r}", param((cout, cout, 3, 3), dt, device))
+        cfin = max(ch // (2 ** cfg.num_upsamples), 32)
+        self.conv_out = param((cfg.out_channels, cfin, 3, 3), dt, device)
+
+    @torch.no_grad()
+    def init_(self, gen: torch.Generator) -> None:
+        for _, w in self.named_parameters():
+            # the reference's fan-in rule reads shape[0] of its HWIO kernel: 3
+            common.dense_init_(w, gen, fan_in=3)
+
+    def forward(self, z: torch.Tensor) -> torch.Tensor:
+        """z: (B, h, w, latent_channels) NHWC -> pixels (B, 8h, 8w, 3) float32."""
+        cfg = self.cfg
+        dt = cfg.dtype
+
+        def silu(t):
+            return F.silu(t.float()).to(dt)
+
+        x = F.conv2d(z.to(dt).permute(0, 3, 1, 2), self.conv_in, padding=1)
+        for i in range(cfg.num_upsamples):
+            x = F.interpolate(silu(x), scale_factor=2, mode="nearest")
+            x = F.conv2d(x, getattr(self, f"up{i}_in"), padding=1)
+            for r in range(cfg.res_blocks):
+                x = x + F.conv2d(silu(x), getattr(self, f"up{i}_res{r}"), padding=1)
+        x = F.conv2d(silu(x), self.conv_out, padding=1)
+        return torch.tanh(x.float()).permute(0, 2, 3, 1)
