@@ -9,12 +9,12 @@ stage co-resides (E merges with D; C takes a subset of D's units), otherwise
 route to an idle/earliest-free auxiliary replica at the profiled optimal
 parallelism.
 
-Counterpart of ``repro/core/dispatcher.py``; its fleet-level
-``CrossLaneBatcher`` is not ported yet.
+Counterpart of ``repro/core/dispatcher.py`` for one pipeline: the fleet's
+``CrossLaneBatcher``, ILP aggregation, incremental re-solve, unit lending and
+elastic draining are not ported yet.
 """
 from __future__ import annotations
 
-import bisect
 import dataclasses
 import heapq
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -36,11 +36,6 @@ EFF_THRESHOLD = 0.8                            # E_{r,k} filter
 # mean latency.  A small per-second penalty (<< C_on - C_late) breaks the
 # tie toward faster configs without ever flipping an SLO decision.
 GAMMA_TIME = 2.0
-# Cross-pipeline unit lending: reward discount on options whose auxiliary
-# stage would land on a borrowed foreign unit (kept well below C_LATE so a
-# borrow never outbids a native on-time config, but still biases the solver
-# toward native capacity when both are idle).
-BORROW_PENALTY = 25.0
 
 
 @dataclasses.dataclass
@@ -69,32 +64,10 @@ class DispatchDecision:
 
 class Dispatcher:
     def __init__(self, profiler: Profiler, max_batch: int = 64,
-                 solver_time_cap: float = 0.05, aggregate: bool = False,
-                 incremental: bool = False):
-        """``aggregate`` turns on multiplicity-aware ILP aggregation:
-        pending requests with identical option lists (same class, same
-        reward state) enter the solver once with a count instead of N
-        times, so dense same-class floods build capacity-bounded instances
-        (see ``ilp.solve_grouped``).  Off by default so the single-pipeline
-        dispatch path is bit-identical to its pre-aggregation behavior; the
-        fleet layer (core/fleet.py) turns it on.
-
-        ``incremental`` persists the dispatch model across wake-ups: when
-        the option matrix and budgets are unchanged since the previous
-        ``dispatch`` call (pure-completion wake-ups, heartbeat re-checks
-        with a frozen pending set), the previous solution is reused without
-        re-solving.  Reuse is exact whenever the previous solve proved
-        optimality (the branch-and-bound only replaces an incumbent on
-        *strictly* better reward, so a warm re-solve of the identical
-        instance returns the identical choices); under a node-capped solve
-        it may pin an improvable incumbent, which is why the flag defaults
-        off and the committed BENCH trajectories never see it
-        (docs/architecture.md: incremental-solve contract)."""
+                 solver_time_cap: float = 0.05):
         self.prof = profiler
         self.max_batch = max_batch
         self.solver_time_cap = solver_time_cap
-        self.aggregate = aggregate
-        self.incremental = incremental
         self.last_solve_stats: Dict[str, float] = {}
         # previous solve's surviving (dim, usage) per request id — warm-starts
         # the ILP incumbent under steady load (requests pending across ticks)
@@ -102,14 +75,8 @@ class Dispatcher:
         # per-class feasibility cache: (req.key(), cond_len) -> the budget-
         # independent (runtime, vr, k) triples of build_options' nested scan,
         # in scan order.  Pure memoization of profiler-table functions of the
-        # request class — byte-identical to the uncached scan, so it is
-        # always on (unlike the flag-gated solve reuse above).
+        # request class, byte-identical to the uncached scan.
         self._feas: Dict[tuple, Tuple[Tuple[float, int, int], ...]] = {}
-        # persisted model for the flag-gated cross-tick solve reuse
-        self._sig: Optional[tuple] = None
-        self._sig_choices: Optional[Dict[int, ilp.Option]] = None
-        self._sig_stats: Optional[Dict[str, float]] = None
-        self.solve_reuses = 0    # solves skipped via the persisted model
 
     # -- reward / penalty (App. C.2) ----------------------------------------
 
@@ -143,9 +110,6 @@ class Dispatcher:
 
     # -- ILP construction ------------------------------------------------------
 
-    # auxiliary stages each Virtual Replica routes off-primary (Table 3)
-    _VR_AUX = {0: (), 1: ("E",), 2: ("C",), 3: ("E", "C")}
-
     def _feas_configs(self, req: Request) -> Tuple[Tuple[float, int, int], ...]:
         """Budget-independent feasible (runtime, vr, k) triples for one
         request class, in ``build_options``' scan order (vr outer 0..3, k
@@ -171,25 +135,15 @@ class Dispatcher:
         return cached
 
     def build_options(self, reqs: Sequence[Request], tau: float,
-                      idle_by_type: Dict[str, int],
-                      aux_penalty: Optional[Dict[str, float]] = None
+                      idle_by_type: Dict[str, int]
                       ) -> Tuple[List[List[ilp.Option]], List[int]]:
         budgets = [idle_by_type.get(primary_of_vr(v), 0) for v in range(4)]
-        vr_pen = [0.0] * 4
-        if aux_penalty:
-            # lending: a VR whose auxiliary stage would land on a borrowed
-            # foreign unit carries the borrow discount (extra columns the
-            # solver may still take when native capacity is the binding
-            # constraint)
-            vr_pen = [sum(aux_penalty.get(s, 0.0) for s in self._VR_AUX[v])
-                      for v in range(4)]
         options: List[List[ilp.Option]] = []
-        # per-call class cache: budgets, tau, and vr_pen are fixed for the
-        # whole call, so the budget-filtered triples, the best/worst
-        # predicted finishes, and — for requests every config beats the
-        # deadline of — the complete option list are functions of the
-        # request *class* alone.  Same-class floods (the common fleet-scale
-        # wave) then build their options once instead of once per request;
+        # per-call class cache: budgets and tau are fixed for the whole
+        # call, so the budget-filtered triples, the best/worst predicted
+        # finishes, and — for requests every config beats the deadline of —
+        # the complete option list are functions of the request *class*
+        # alone.  Same-class requests then build their options once;
         # cached option lists are shared (ilp.Option is frozen and no
         # downstream consumer mutates an option list).
         cache: Dict[tuple, list] = {}
@@ -227,8 +181,7 @@ class Dispatcher:
                         f = tau + rt
                         b = base[vr]
                         if b is None:
-                            b = base[vr] = (C_ON - self._q_ri(req, vr)
-                                            - vr_pen[vr])
+                            b = base[vr] = C_ON - self._q_ri(req, vr)
                         opts.append(ilp.Option(
                             dim=vr, usage=k,
                             reward=b - GAMMA_TIME * (f - tau)))
@@ -248,141 +201,40 @@ class Dispatcher:
                 if f <= deadline or f == best_finish:
                     b = base[vr]
                     if b is None:
-                        b = base[vr] = w - self._q_ri(req, vr) - vr_pen[vr]
+                        b = base[vr] = w - self._q_ri(req, vr)
                     opts.append(ilp.Option(
                         dim=vr, usage=k,
                         reward=b - GAMMA_TIME * (f - tau)))
             options.append(opts)
         return options, budgets
 
-    def _solve_grouped(self, reqs: Sequence[Request],
-                       options: List[List[ilp.Option]], budgets: List[int]
-                       ) -> Tuple[Dict[int, ilp.Option], Dict[str, float]]:
-        """Multiplicity-aware solve: requests with identical option lists
-        form one group with a count.  Granted copies map back to the
-        group's members in deadline order (``reqs`` is deadline-sorted),
-        best-reward option first, so the earliest-deadline member gets the
-        fastest grant."""
-        groups: Dict[Tuple[ilp.Option, ...], int] = {}
-        members: List[List[int]] = []
-        gopts: List[List[ilp.Option]] = []
-        for ri, opts in enumerate(options):
-            if not opts:
-                continue
-            key = tuple(opts)
-            g = groups.get(key)
-            if g is None:
-                g = groups[key] = len(gopts)
-                gopts.append(opts)
-                members.append([])
-            members[g].append(ri)
-        warm: Dict[int, List[Tuple[int, int]]] = {}
-        for g, mem in enumerate(members):
-            seeds = [self._warm[reqs[ri].rid] for ri in mem
-                     if reqs[ri].rid in self._warm]
-            if seeds:
-                warm[g] = seeds
-        gsol = ilp.solve_grouped(gopts, budgets,
-                                 [len(mem) for mem in members],
-                                 time_cap=self.solver_time_cap, warm=warm,
-                                 dp=self.incremental)
-        choices: Dict[int, ilp.Option] = {}
-        for g, granted in gsol.alloc.items():
-            for ri, opt in zip(members[g], granted):
-                choices[ri] = opt
-        return choices, {"nodes": gsol.nodes, "optimal": gsol.optimal,
-                         "reward": gsol.reward, "n_solved": gsol.n_slots,
-                         "n_groups": len(gopts)}
-
     # -- unit selection ---------------------------------------------------------
 
-    @staticmethod
-    def select_units(plan: PlacementPlan, ptype: str, k: int,
-                     idle_units: set, cross_node: bool = False
-                     ) -> Optional[Tuple[int, ...]]:
-        """k idle units of placement ``ptype`` within one node (intra-machine
-        constraint §6.2); contiguous-first for ICI locality.  With
-        ``cross_node`` (TPU pods: ICI everywhere) adjacent nodes combine
-        when no single node suffices."""
-        upn = plan.units_per_node
-        by_node: Dict[int, List[int]] = {}
-        for g in plan.units_of_type(ptype):
-            if g in idle_units:
-                by_node.setdefault(g // upn, []).append(g)
-        # node id as total tie-break: insertion is already ascending-node
-        # (units_of_type walks unit ids), so this is byte-neutral but makes
-        # the equal-count order explicit rather than stability-dependent
-        for node, units in sorted(by_node.items(),
-                                  key=lambda kv: (-len(kv[1]), kv[0])):
-            if len(units) >= k:
-                return tuple(sorted(units)[:k])
-        if cross_node:
-            pool: List[int] = []
-            for node in sorted(by_node):
-                pool.extend(sorted(by_node[node]))
-            if len(pool) >= k:
-                return tuple(pool[:k])
-        return None
-
     def _aux_units(self, plan: PlacementPlan, stage: str, k: int,
-                   idle_units: set, free_at: Dict[int, float], tau: float,
-                   borrowed: Optional[set] = None,
-                   exclude: Optional[Dict[int, float]] = None
+                   idle_units: set, free_at: Dict[int, float], tau: float
                    ) -> Tuple[int, ...]:
-        """Idle-or-earliest-free auxiliary units for E/C (Monitor-reported).
-
-        With active loans (``borrowed``), native units win ties: a borrowed
-        foreign unit is only taken when it is strictly the better host
-        (idle while every native auxiliary is busy, or earlier-free).
-        ``exclude`` steers auxiliary work off draining units (doomed by a
-        preemption notice, core/elastic.py) — but only while a healthy
-        candidate exists: a lane whose sole auxiliary sits on a doomed
-        node keeps serving through it (short aux runs mostly beat the
-        land, and stragglers are requeued there anyway)."""
+        """Idle-or-earliest-free auxiliary units for E/C (Monitor-reported)."""
         cands = plan.units_of_type(stage)
-        if exclude:
-            healthy = [g for g in cands if g not in exclude]
-            if healthy:
-                cands = healthy
         if not cands:
             return ()
         # nsmallest == sorted(...)[:k] (stable, documented), at O(n) instead
         # of O(n log n) — k is a profiled optimal degree, i.e. tiny, while
         # the candidate list is every auxiliary unit of the stage type
-        if borrowed:
-            cands = heapq.nsmallest(k, cands,
-                                    key=lambda g: (g not in idle_units,
-                                                   free_at.get(g, tau),
-                                                   g in borrowed))
-        else:
-            cands = heapq.nsmallest(k, cands,
-                                    key=lambda g: (g not in idle_units,
-                                                   free_at.get(g, tau)))
-        return tuple(cands)
+        return tuple(heapq.nsmallest(k, cands,
+                                     key=lambda g: (g not in idle_units,
+                                                    free_at.get(g, tau))))
 
     # -- main entry ---------------------------------------------------------------
 
     def dispatch(self, pending: Sequence[Request], plan: PlacementPlan,
-                 idle_units: set, free_at: Dict[int, float], tau: float,
-                 borrowed: Optional[Dict[str, Tuple[int, ...]]] = None,
-                 draining: Optional[Dict[int, float]] = None
+                 idle_units: set, free_at: Dict[int, float], tau: float
                  ) -> List[DispatchDecision]:
         """One dispatch round over the pending set.
 
-        ``idle_units`` and ``free_at`` are the engine's *live* views
-        (``ServingEngine.idle_units`` / ``free_at``): never mutated here —
-        grants consume from a private ``avail`` copy — and only valid
-        until the caller applies the returned decisions to the engine.
-
-        ``draining`` maps doomed unit ids to their loss time (a preemption
-        notice is live, core/elastic.py): a draining unit may still host a
-        primary launch that *finishes before its land time* — short work
-        keeps flowing through the doomed capacity for the rest of the
-        notice window — but never a launch that would straddle the loss
-        (that work would be requeued at the land and re-run from scratch).
-        Auxiliary stages avoid draining units entirely.  ``None`` (the
-        default, and always when elasticity is off) takes the pooled
-        fast path byte-for-byte unchanged.
+        ``idle_units`` and ``free_at`` are the caller's *live* views of the
+        units: never mutated here — grants consume from a private ``avail``
+        copy — and only valid until the caller applies the returned
+        decisions.
         """
         # candidate set scales with idle capacity: a fixed cap would only
         # ever show the solver the oldest (often already-late) requests
@@ -391,166 +243,42 @@ class Dispatcher:
         reqs = sorted(pending, key=lambda r: r.deadline)[:cap]
         if not reqs:
             return []
-        # C-speed set intersection == counting units_of_type members in the
-        # idle set (same active view); the genexpr walked every unit of
-        # every primary type per dispatch round.  A draining unit counts
-        # toward its type's budget only while its remaining window can
-        # still host the *shortest* candidate launch of that type: promise
-        # more and the solver grants work that unit selection then has to
-        # refuse (burning the round's throughput — the metastable-collapse
-        # shape); promise less and doomed capacity sits idle for work that
-        # could legally land before the loss.
-        budget_idle = idle_units
-        if draining:
-            min_rt: Dict[str, float] = {}
-            seen_cls = set()
-            for req in reqs:
-                ck = (req.key(), req.cond_len)
-                if ck in seen_cls:
-                    continue
-                seen_cls.add(ck)
-                for rt, vr, _k in self._feas_configs(req):
-                    t = primary_of_vr(vr)
-                    if t not in min_rt or rt < min_rt[t]:
-                        min_rt[t] = rt
-            inf = float("inf")
-            budget_idle = idle_units - {
-                g for g, land in draining.items()
-                if land - tau < min_rt.get(plan.placements[g], inf)}
-        idle_by_type = {t: len(budget_idle & plan.type_set(t))
+        idle_by_type = {t: len(idle_units & plan.type_set(t))
                         for t in PRIMARY_PLACEMENTS}
-        # cross-pipeline unit lending (core/lending.py): borrowed foreign
-        # units appear as E/C-only candidates.  An option whose auxiliary
-        # stage would land on one (no idle native auxiliary of that type)
-        # carries the borrow discount.
-        borrowed_all: set = set()
-        aux_penalty: Optional[Dict[str, float]] = None
-        if borrowed:
-            borrowed_all = {g for gs in borrowed.values() for g in gs}
-            aux_penalty = {}
-            for s in ("E", "C"):
-                native_idle = any(g in idle_units and g not in borrowed_all
-                                  for g in plan.units_of_type(s))
-                lent_idle = any(free_at.get(g, 0.0) <= tau
-                                for g in borrowed.get(s, ()))
-                if lent_idle and not native_idle:
-                    aux_penalty[s] = BORROW_PENALTY
-        options, budgets = self.build_options(reqs, tau, idle_by_type,
-                                              aux_penalty)
-        # incremental re-solve: the solver only ever sees (options, budgets)
-        # — the request identities, tau, and unit ids are outside the model —
-        # so an unchanged signature means the previous solution is a valid
-        # solution of this instance (and the optimum, when the previous
-        # solve proved optimality).  Pure-completion wake-ups, where freed
-        # units are auxiliary and the pending head is frozen, hit this path.
-        sig = ((tuple(budgets), tuple(tuple(o) for o in options))
-               if self.incremental else None)
-        if (sig is not None and sig == self._sig
-                and self._sig_choices is not None):
-            choices = self._sig_choices
-            stats = {**self._sig_stats, "nodes": 0, "reused": True}
-            self.solve_reuses += 1
-        elif self.aggregate:
-            choices, stats = self._solve_grouped(reqs, options, budgets)
-        else:
-            warm = {ri: self._warm[req.rid] for ri, req in enumerate(reqs)
-                    if req.rid in self._warm}
-            sol = ilp.solve(options, budgets, time_cap=self.solver_time_cap,
-                            warm=warm, dp=self.incremental)
-            choices = sol.choices
-            stats = {"nodes": sol.nodes, "optimal": sol.optimal,
-                     "reward": sol.reward, "n_solved": len(reqs)}
-        if sig is not None and not stats.get("reused"):
-            self._sig = sig
-            self._sig_choices = choices
-            self._sig_stats = dict(stats)
+        options, budgets = self.build_options(reqs, tau, idle_by_type)
+        warm = {ri: self._warm[req.rid] for ri, req in enumerate(reqs)
+                if req.rid in self._warm}
+        sol = ilp.solve(options, budgets, time_cap=self.solver_time_cap, warm=warm)
+        choices = sol.choices
         self._warm = {reqs[ri].rid: (opt.dim, opt.usage)
                       for ri, opt in choices.items()}
-        self.last_solve_stats = {**stats, "n_reqs": len(reqs)}
+        self.last_solve_stats = {"nodes": sol.nodes, "optimal": sol.optimal,
+                                 "reward": sol.reward, "n_solved": len(reqs),
+                                 "n_reqs": len(reqs)}
 
         decisions: List[DispatchDecision] = []
         avail = set(idle_units)
-        # Maintained unit pools: ``select_units`` rebuilds its by-node map by
-        # walking *every* unit of the placement type on each grant — O(units)
-        # per grant, the dominant dispatch cost on multi-thousand-chip plans.
-        # Placement types partition the unit space and only primary grants
-        # consume from ``avail``, so each type's by-node map can be built
-        # once per dispatch round (lazily, from the then-current ``avail``)
-        # and maintained across grants.  Selection is byte-identical to
-        # ``select_units``: lists are kept ascending, the node scan walks
-        # ascending node ids taking the first strict count maximum (== the
-        # first len>=k entry of the (-count, node)-sorted order), and the
-        # cross-node pool concatenates ascending nodes.
         upn = plan.units_per_node
-        pools: Dict[str, Dict[int, List[int]]] = {}
-        # lazy max-heap per type over (-count, node): the top valid entry is
-        # the max-count node with the smallest node id — exactly the winner
-        # of the ascending strict-max scan — without an O(nodes) walk per
-        # grant.  Entries go stale when a node's count changes; they are
-        # popped (never trusted) once the stored count mismatches.
-        heaps: Dict[str, List[Tuple[int, int]]] = {}
-
-        def _pool(ptype: str) -> Dict[int, List[int]]:
-            by_node = pools.get(ptype)
-            if by_node is None:
-                by_node = pools[ptype] = {}
-                for g in plan.units_of_type(ptype):
-                    if g in avail:
-                        by_node.setdefault(g // upn, []).append(g)
-                h = heaps[ptype] = [(-len(u), nd) for nd, u in by_node.items()]
-                heapq.heapify(h)
-            return by_node
 
         def _take(ptype: str, k: int) -> Optional[Tuple[int, ...]]:
-            by_node = _pool(ptype)
-            heap = heaps[ptype]
-            best, best_n = None, 0
-            while heap:
-                neg, node = heap[0]
-                if -neg == len(by_node[node]):
-                    best, best_n = node, -neg
-                    break
-                heapq.heappop(heap)   # stale count
-            if best_n >= k:
-                units = by_node[best]
-                out = tuple(units[:k])
-                del units[:k]
-                heapq.heapreplace(heap, (k - best_n, best))
-                return out
-            if self.prof.cross_node_sp:
-                pool = [g for node in sorted(by_node) for g in by_node[node]]
-                if len(pool) >= k:
-                    out = tuple(pool[:k])
-                    taken = set(out)
-                    for node, units in by_node.items():
-                        units[:] = [g for g in units if g not in taken]
-                        heapq.heappush(heap, (-len(units), node))
-                    return out
-            return None
+            """k idle units of placement ``ptype`` within one node (the
+            intra-machine constraint of §6.2): the node with the most idle
+            units of the type, the lowest node id on ties, and its lowest
+            unit ids."""
+            by_node: Dict[int, List[int]] = {}
+            for g in plan.units_of_type(ptype):
+                if g in avail:
+                    by_node.setdefault(g // upn, []).append(g)
+            if not by_node:
+                return None
+            units = by_node[min(by_node, key=lambda nd: (-len(by_node[nd]), nd))]
+            return tuple(units[:k]) if len(units) >= k else None
 
-        def _give_back(ptype: str, units: Tuple[int, ...]) -> None:
-            by_node = _pool(ptype)
-            heap = heaps[ptype]
-            for g in units:
-                node = g // upn
-                bisect.insort(by_node[node], g)
-                heapq.heappush(heap, (-len(by_node[node]), node))
-
-        for ri, opt in sorted(choices.items(), key=lambda kv: -kv[1].reward):  # detlint: ignore[DET004] choices is solver-walk-ordered; equal-reward order is BENCH-byte-frozen
+        # grants in reward order; equal rewards keep the solver's order
+        for ri, opt in sorted(choices.items(), key=lambda kv: -kv[1].reward):
             req = reqs[ri]
             prim = primary_of_vr(opt.dim)
-            if draining:
-                # stage-aware drain: a doomed unit is eligible only when
-                # this launch lands before the unit does.  Slow legacy
-                # selection (no pools) — active only inside a notice
-                # window on an elastic fleet.
-                rt = self._req_runtime(req, opt.dim, opt.usage)
-                elig = {g for g in avail
-                        if g not in draining or tau + rt <= draining[g]}
-                units = self.select_units(plan, prim, opt.usage, elig,
-                                          self.prof.cross_node_sp)
-            else:
-                units = _take(prim, opt.usage)
+            units = _take(prim, opt.usage)
             if units is None:
                 continue   # stay undispatched for next round (paper §6.2)
             avail -= set(units)
@@ -559,83 +287,17 @@ class Dispatcher:
                 e_units = units
             else:
                 ke = self.prof.optimal_degree(req, "E")
-                e_units = self._aux_units(plan, "E", ke, avail, free_at, tau,
-                                          borrowed_all or None,
-                                          exclude=draining)
+                e_units = self._aux_units(plan, "E", ke, avail, free_at, tau)
             # Γ^C: subset of D's units when co-resident, else aux ⟨C⟩
             kc = self.prof.optimal_degree(req, "C")
             if "C" in prim:
                 c_units = units[: max(1, min(kc, len(units)))]
             else:
-                c_units = self._aux_units(plan, "C", kc, avail, free_at, tau,
-                                          borrowed_all or None,
-                                          exclude=draining)
+                c_units = self._aux_units(plan, "C", kc, avail, free_at, tau)
             if not e_units or not c_units:
                 avail |= set(units)
-                if not draining:
-                    _give_back(prim, units)
                 continue   # no auxiliary capacity -> undispatched this tick
             decisions.append(DispatchDecision(
                 request=req, vr_type=opt.dim, degree=opt.usage,
                 d_units=units, e_units=tuple(e_units), c_units=tuple(c_units)))
-        if borrowed:
-            self._offload_decode(decisions, pending, borrowed, free_at, tau)
         return decisions
-
-    def _offload_decode(self, decisions: List[DispatchDecision],
-                        pending: Sequence[Request],
-                        borrowed: Dict[str, Tuple[int, ...]],
-                        free_at: Dict[int, float], tau: float) -> None:
-        """Work-conserving decode offload onto borrowed foreign units.
-
-        When requests are still left waiting after this round's grants, a
-        decision whose primary co-hosts C (⟨EDC⟩/⟨DC⟩ — the common all-V0
-        plan) hands its Decode to an idle borrowed ⟨C⟩ unit instead of
-        merging it: the primary frees t_C earlier, which is exactly the
-        stranded capacity lending is meant to recover.  D never moves — the
-        borrower's diffuse placement is untouched by construction."""
-        pool = [g for g in borrowed.get("C", ())
-                if free_at.get(g, 0.0) <= tau]
-        if not pool:
-            return
-        granted = sum(d.batch for d in decisions)
-        if len(pending) <= granted:
-            return   # no backlog: merged execution stays strictly better
-        # offload the heaviest decodes first — they strand the most time
-        order = sorted(
-            (d for d in decisions
-             if "C" in primary_of_vr(d.vr_type)
-             and set(d.c_units) <= set(d.d_units)),
-            key=lambda d: -self.prof.stage_time(
-                d.request, "C", len(d.c_units) * self.prof.k_min))
-        for dec in order:
-            if not pool:
-                return
-            req = dec.request
-            kc = min(self.prof.optimal_degree(req, "C"), len(dec.c_units))
-            take = pool[:max(1, min(kc, len(pool)))]
-            if not self.prof.fits(req, "C", len(take)):
-                continue
-            # degree- and deadline-aware: a thinner pool slows this
-            # request's own decode, and even at the merged degree the
-            # offload pays the inter-node latent push (plus a possible
-            # comm-group init) that merged execution avoids — only degrade
-            # when the request still makes its SLO, or misses it either way
-            k = self.prof.k_min
-            t_merged = self.prof.stage_time(req, "C", kc * k)
-            t_off = self.prof.stage_time(req, "C", len(take) * k)
-            q_dc = self.prof.comm_bytes(req, "DC")
-            t_push = (self.prof.transfer_time(q_dc, intra_node=False)
-                      + self.prof.transfer_time(q_dc, intra_node=True)
-                      + self.prof.hw.comm_group_init)
-            runtime = self._req_runtime(req, dec.vr_type, dec.degree)
-            # start when the granted primary units actually free up, not
-            # at tau — a queueing-blind estimate would bless offloads that
-            # push the real finish past the deadline
-            start = max([tau] + [free_at.get(g, tau) for g in dec.d_units])
-            fin_merged = start + runtime
-            fin_off = fin_merged - t_merged + t_off + t_push
-            if fin_off > req.deadline and fin_merged <= req.deadline:
-                continue
-            dec.c_units = tuple(take)
-            del pool[:len(take)]

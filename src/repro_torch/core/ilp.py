@@ -11,17 +11,13 @@ Solved exactly by depth-first branch-and-bound with an admissible bound
 (sum of per-request best remaining rewards) and a greedy incumbent.  A node
 cap keeps per-tick latency bounded (the incumbent is returned if hit, making
 the solver anytime) — matching the paper's sub-100 ms per-tick budget
-(Table 4).  Cross-checked against brute force in tests/test_ilp.py.
+(Table 4).
 
 The anytime cap is **deterministic**: ``time_cap`` is translated into a
 node budget at a fixed calibration rate (``NODES_PER_SECOND``) instead of
-reading the wall clock.  The old wall-clock check stopped the DFS at a
-machine-load-dependent node, so two runs of the same trace could dispatch
-differently whenever an instance was big enough to hit the cap — which
-silently broke the byte-for-byte BENCH reproduction contract on flood
-scenarios (caught by tests/test_determinism.py).
+reading the wall clock, so two runs of the same trace dispatch alike.
 
-Hot-path refinements (all exactness-preserving):
+Refinements (all exactness-preserving):
   * options whose usage exceeds their dimension's budget are dropped up
     front, which also tightens the additive suffix bound;
   * cross-dimension dominance: an option on a *slack* dimension (one whose
@@ -32,61 +28,26 @@ Hot-path refinements (all exactness-preserving):
     (dim, usage) choices, so the branch-and-bound starts near last tick's
     optimum and prunes far more aggressively under steady load.
 
-Multi-dimensional options (cross-lane batching): ``Option.dim``/``usage``
-may also be *parallel tuples*, one (dim, usage) pair per budget dimension
-the option consumes — the column shape the fleet's cross-lane batcher
-needs, where joining a fused launch consumes both the launch's shared
-batch-size budget and the member lane's own batch-curve cap.  Classic
-single-``int`` options are unchanged (and single-dim instances take the
-exact same code path bit-for-bit); the two kinds may mix freely in one
-instance.  ``solve_grouped`` therefore expands cross-lane groups the same
-way it expands within-lane multiplicity: one column with a count, capacity-
-bounded by the *total* usage of the cheapest option.
+Counterpart of ``repro/core/ilp.py`` for its single-pipeline path: one budget
+dimension per option, no grouped solve and no dense-DP fast path.
 """
 from __future__ import annotations
 
 import dataclasses
-import itertools
 from typing import Dict, List, Optional, Sequence, Tuple
 
-try:                        # dense-DP fast path (``dp=True`` instances)
-    import numpy as np
-except ImportError:         # pragma: no cover - numpy ships with torch
-    np = None
-
-# deterministic time->node translation for the anytime cap: calibrated on a
-# flood instance (~1.3M nodes/s on the baseline box), so the node budget
-# sits where the old wall-clock cap effectively was there — verified to
-# reproduce the committed shared-cluster trajectory byte-for-byte across
-# the whole [1.0M, 1.6M] band (tests/test_determinism.py pins it); a 50 ms
-# dispatch budget is a 65k-node budget everywhere
+# deterministic time->node translation for the anytime cap (~1.3M nodes/s on
+# the reference's calibration box): a 50 ms dispatch budget is a 65k-node
+# budget everywhere
 NODES_PER_SECOND = 1_300_000
 
 
 @dataclasses.dataclass(frozen=True)
 class Option:
-    """One (type i, degree k) choice for a request.
-
-    ``dim``/``usage`` are plain ints for the classic dispatch column; a
-    multi-dimensional option (cross-lane batching) carries parallel tuples
-    instead — ``dim[j]``'s budget is charged ``usage[j]`` units."""
-    dim: object       # budget dimension (int) | parallel dims (Tuple[int, ...])
-    usage: object     # units consumed (int) | per-dim usages (Tuple[int, ...])
+    """One (type i, degree k) choice for a request."""
+    dim: int          # budget dimension (Virtual-Replica index)
+    usage: int        # units consumed
     reward: float
-
-
-def _spans(o: Option) -> Tuple[Tuple[int, int], ...]:
-    """Normalized ((dim, usage), ...) consumption pairs of one option."""
-    if isinstance(o.dim, tuple):
-        return tuple(zip(o.dim, o.usage))
-    return ((o.dim, o.usage),)
-
-
-def _usage_total(o: Option) -> int:
-    """Total units consumed across all of an option's budget dimensions."""
-    if isinstance(o.usage, tuple):
-        return sum(o.usage)
-    return o.usage
 
 
 @dataclasses.dataclass
@@ -95,73 +56,6 @@ class Solution:
     reward: float
     nodes: int
     optimal: bool
-
-
-@dataclasses.dataclass
-class GroupedSolution:
-    """Result of ``solve_grouped``: per-group granted options."""
-    alloc: Dict[int, List[Option]]   # group index -> one Option per copy
-    reward: float
-    nodes: int
-    optimal: bool
-    n_slots: int                     # expanded instance size actually solved
-
-
-def solve_grouped(options: Sequence[Sequence[Option]],
-                  budgets: Sequence[int], counts: Sequence[int],
-                  node_cap: int = 200_000, time_cap: float = 0.2,
-                  warm: Optional[Dict[int, Sequence[Tuple[int, int]]]] = None,
-                  dp: bool = False) -> GroupedSolution:
-    """Multiplicity-aware dispatch ILP: group g enters once with a count.
-
-    ``options[g]`` is the option list shared by ``counts[g]`` identical
-    requests; up to ``counts[g]`` copies of group g may be granted (each
-    copy independently picks one option and consumes its usage).  Instead
-    of materializing every member — a dense same-class flood puts thousands
-    of identical rows in front of the solver — each group is expanded only
-    up to its *capacity bound*: every option consumes at least one unit, so
-    no solution grants more copies than ``sum(budgets) // min_usage``.  The
-    truncated members are interchangeable with the kept ones, so the
-    optimum is unchanged; the expanded instance then reuses ``solve`` (whose
-    identical-row symmetry breaking collapses the remaining copies).
-
-    Cross-lane group expansion (fleet dynamic batching): the same
-    machinery extends the grouping key *across lanes* — the fleet batcher
-    keys groups by (lane, batch size) and hands each group multi-
-    dimensional options (see ``Option``) whose parallel dims charge both
-    the fused launch's shared batch budget and the member lane's own
-    batch-curve cap.  Nothing here is lane-aware: a cross-lane group is
-    just a group whose option spans more than one budget dimension, and
-    the capacity bound uses the option's *total* usage.
-
-    ``warm`` maps group index -> (dim, usage) pairs granted to the group on
-    a previous solve; they seed the incumbent exactly like ``solve``'s warm
-    starts.
-    """
-    total_budget = int(sum(budgets))
-    slot_group: List[int] = []           # expanded slot -> group index
-    slot_opts: List[Sequence[Option]] = []
-    warm_slots: Dict[int, Tuple[int, int]] = {}
-    for g, (opts, m) in enumerate(zip(options, counts)):
-        if not opts or m <= 0:
-            continue
-        min_use = max(1, min(_usage_total(o) for o in opts))
-        cap = min(int(m), total_budget // min_use)
-        seeds = list((warm or {}).get(g, ()))
-        for i in range(cap):
-            if i < len(seeds):
-                warm_slots[len(slot_group)] = tuple(seeds[i])
-            slot_group.append(g)
-            slot_opts.append(opts)
-    sol = solve(slot_opts, budgets, node_cap=node_cap, time_cap=time_cap,
-                warm=warm_slots or None, dp=dp)
-    alloc: Dict[int, List[Option]] = {}
-    for si, o in sol.choices.items():
-        alloc.setdefault(slot_group[si], []).append(o)
-    for granted in alloc.values():
-        granted.sort(key=lambda o: (-o.reward, _usage_total(o)))
-    return GroupedSolution(alloc=alloc, reward=sol.reward, nodes=sol.nodes,
-                           optimal=sol.optimal, n_slots=len(slot_group))
 
 
 def _greedy(options: Sequence[Sequence[Option]], budgets: List[int],
@@ -173,83 +67,29 @@ def _greedy(options: Sequence[Sequence[Option]], budgets: List[int],
     chosen: Dict[int, Option] = {}
     total = 0.0
     if seed:
-        for r, o in seed.items():  # detlint: ignore[DET001] warm-start dict is solver-insertion-ordered; admission order is the algorithm
-            if all(u <= rem[d] for d, u in _spans(o)):
+        for r, o in seed.items():
+            if o.usage <= rem[o.dim]:
                 chosen[r] = o
-                for d, u in _spans(o):
-                    rem[d] -= u
+                rem[o.dim] -= o.usage
                 total += o.reward
     order = sorted((r for r in range(len(options)) if r not in chosen),
                    key=lambda r: -max((o.reward for o in options[r]), default=0.0))
     for r in order:
         best = None
-        for o in sorted(options[r], key=lambda o: (-o.reward, _usage_total(o))):
-            if o.reward > 0 and all(u <= rem[d] for d, u in _spans(o)):
+        for o in sorted(options[r], key=lambda o: (-o.reward, o.usage)):
+            if o.reward > 0 and o.usage <= rem[o.dim]:
                 best = o
                 break
         if best is not None:
             chosen[r] = best
-            for d, u in _spans(best):
-                rem[d] -= u
+            rem[best.dim] -= best.usage
             total += best.reward
     return chosen, total
 
 
-def _solve_dp_single_dim(pruned: Sequence[Sequence[Option]], dim: int,
-                         cap: int) -> Tuple[Dict[int, Option], float]:
-    """Exact multiple-choice knapsack DP for *effectively one-dimensional*
-    instances (every surviving option charges the same single budget
-    dimension).  These are precisely the instances where the branch-and-
-    bound's additive suffix bound degrades — a saturated fleet lane whose
-    backlog all competes for one placement type routinely burned the whole
-    deterministic node cap (and returned a sub-optimal incumbent) on what
-    is a textbook 0/1 knapsack.  The dense DP is O(requests * cap * options)
-    cells, exact, and cap-free.
-
-    Determinism: iteration order is fixed (requests in index order, options
-    in list order), updates replace only on *strictly* better reward, and
-    reconstruction walks a parent-choice table — no hash-order, no clock.
-    """
-    n = len(pruned)
-    # capacities beyond what every request's largest option could jointly
-    # consume are unreachable — clamping shrinks the table on lanes whose
-    # budget far exceeds the backlog (val is monotone, so val[cap_eff] is
-    # still the optimum)
-    cap = min(cap, sum(max((o.usage for o in opts), default=0)
-                       for opts in pruned))
-    val = np.zeros(cap + 1, dtype=np.float64)      # best reward at capacity <= c
-    take = np.full((n, cap + 1), -1, dtype=np.int32)
-    for r, opts in enumerate(pruned):
-        if not opts:
-            continue
-        best = val.copy()                          # skip branch
-        choice = take[r]
-        for oi, o in enumerate(opts):
-            u = o.usage
-            if u > cap:
-                continue
-            cand = val[:cap + 1 - u] + o.reward
-            seg = best[u:]
-            upd = cand > seg
-            seg[upd] = cand[upd]
-            choice[u:][upd] = oi
-        val = best
-    c = cap
-    picks: List[Tuple[int, Option]] = []
-    for r in range(n - 1, -1, -1):
-        oi = int(take[r, c])
-        if oi >= 0:
-            o = pruned[r][oi]
-            picks.append((r, o))
-            c -= o.usage
-    picks.reverse()
-    return dict(picks), float(val[cap])
-
-
 def solve(options: Sequence[Sequence[Option]], budgets: Sequence[int],
           node_cap: int = 200_000, time_cap: float = 0.2,
-          warm: Optional[Dict[int, Tuple[int, int]]] = None,
-          dp: bool = False) -> Solution:
+          warm: Optional[Dict[int, Tuple[int, int]]] = None) -> Solution:
     """Maximize total reward.  ``options[r]`` lists request r's choices.
 
     ``warm`` maps request index -> (dim, usage) chosen on a previous solve
@@ -259,201 +99,54 @@ def solve(options: Sequence[Sequence[Option]], budgets: Sequence[int],
     ``time_cap`` is a *latency budget*, enforced deterministically: it is
     converted to a node budget at ``NODES_PER_SECOND``, so a capped solve
     stops at the same node on every machine and every run.
-
-    ``dp`` permits the exact dense-DP fast path on effectively one-
-    dimensional instances (``_solve_dp_single_dim``).  It is opt-in —
-    flag-gated behind ``incremental_ilp`` at the dispatcher layer — because
-    on instances big enough to hit the node cap the DFS returns a capped
-    *incumbent* while the DP returns the true optimum: better grants, but a
-    different trajectory than the committed BENCH baselines pin.
     """
     n = len(options)
     budgets = list(budgets)
     if time_cap is not None:
         node_cap = min(node_cap, max(1, int(time_cap * NODES_PER_SECOND)))
 
-    # fused all-scalar fast path (opt-in with ``dp``, like the all-slack
-    # early return below — this IS that return, with the feasibility
-    # filter and the slack analysis folded into one pass that never
-    # materializes spans).  At fleet scale almost every dispatch instance
-    # is scalar-dim and fully slack, and the per-option ``_spans`` tuple
-    # construction dominated solve preprocessing.  Bails to the generic
-    # path (identical behavior) on the first tuple-dim option or any
-    # non-slack dimension.
-    if dp:
-        nb = len(budgets)
-        max_use_f = [0] * nb
-        fast_best: List[Optional[Option]] = []
-        scalar = True
-        for opts in options:
-            best = None
-            per_dim: Dict[int, int] = {}
-            for o in opts:
-                if o.reward <= 0:
-                    continue
-                d = o.dim
-                if isinstance(d, tuple):
-                    scalar = False
-                    break
-                u = o.usage
-                if u > budgets[d]:
-                    continue
-                if u > per_dim.get(d, 0):
-                    per_dim[d] = u
-                if best is None or o.reward > best.reward:
-                    best = o
-            if not scalar:
-                break
-            for d, u in per_dim.items():
-                max_use_f[d] += u
-            fast_best.append(best)
-        if scalar and all(max_use_f[d] <= budgets[d] for d in range(nb)):
-            choices: Dict[int, Option] = {}
-            reward = 0.0
-            for r, best in enumerate(fast_best):
-                if best is not None:
-                    choices[r] = best
-                    reward += best.reward
-            return Solution(choices=choices, reward=reward, nodes=0,
-                            optimal=True)
-
     # feasibility filter: an option can never fit if its usage alone
-    # exceeds its dimension's budget (checked per consumed dimension).
-    # Spans are derived once per option here and threaded through the
-    # slack analysis, the prune, and the DFS prep — ``_spans`` tuple
-    # construction was a measurable share of solve preprocessing at
-    # fleet scale.
-    feasible: List[List[Option]] = []
-    fspans: List[List[Tuple[Tuple[int, int], ...]]] = []
-    for opts in options:
-        keep_o: List[Option] = []
-        keep_s: List[Tuple[Tuple[int, int], ...]] = []
-        for o in opts:
-            if o.reward <= 0:
-                continue
-            sp = _spans(o)
-            for d, u in sp:
-                if u > budgets[d]:
-                    break
-            else:
-                keep_o.append(o)
-                keep_s.append(sp)
-        feasible.append(keep_o)
-        fspans.append(keep_s)
+    # exceeds its dimension's budget
+    feasible = [[o for o in opts if o.reward > 0 and o.usage <= budgets[o.dim]]
+                for opts in options]
 
     # slack dimensions: budget covers every request's largest option there,
     # so the dimension can never be binding in any solution
     max_use = [0] * len(budgets)
-    for sps in fspans:
+    for opts in feasible:
         per_dim: Dict[int, int] = {}
-        for sp in sps:
-            for d, u in sp:
-                if u > per_dim.get(d, 0):
-                    per_dim[d] = u
+        for o in opts:
+            if o.usage > per_dim.get(o.dim, 0):
+                per_dim[o.dim] = o.usage
         for d, u in per_dim.items():
             max_use[d] += u
     slack = [max_use[d] <= budgets[d] for d in range(len(budgets))]
 
-    # fully slack instance -> unconstrained: even if every request takes its
-    # largest option in every dimension it touches, no budget binds, so the
-    # optimum is each request's first-listed max-reward option.  Opt-in for
-    # the same reason as the DP below: a node-capped DFS may have returned a
-    # different (worse) incumbent, so always-on would change committed
-    # trajectories.  At fleet scale most dispatch instances are slack —
-    # this skips the dominance prune, ordering, and search entirely.
-    if dp and all(slack):
-        choices: Dict[int, Option] = {}
-        reward = 0.0
-        for r, opts in enumerate(feasible):
-            best = None
-            for o in opts:
-                if best is None or o.reward > best.reward:
-                    best = o
-            if best is not None:
-                choices[r] = best
-                reward += best.reward
-        return Solution(choices=choices, reward=reward, nodes=0,
-                        optimal=True)
-
     # dominance prune per request:
-    #   * same dims: dominated in (reward, per-dim usage) — classic Pareto;
-    #   * cross dim: any option entirely on slack dimensions dominates
-    #     options with no more reward (swapping to it can never break
-    #     feasibility).
+    #   * same dim: dominated in (reward, usage) — classic Pareto;
+    #   * cross dim: any option on a slack dimension dominates options with
+    #     no more reward (swapping to it can never break feasibility).
     pruned: List[List[Option]] = []
-    pspans: List[List[Tuple[Tuple[int, int], ...]]] = []
-    for opts, sps in zip(feasible, fspans):
+    for opts in feasible:
         slack_best = None
-        for o, sp in zip(opts, sps):
-            for d, _ in sp:
-                if not slack[d]:
-                    break
-            else:
-                if slack_best is None or o.reward > slack_best:
-                    slack_best = o.reward
-        keep: List[Tuple[Option, Tuple[Tuple[int, int], ...],
-                         Dict[int, int]]] = []
-        for o, sp in sorted(zip(opts, sps),
-                            key=lambda t: (_usage_total(t[0]), -t[0].reward)):
-            o_use = dict(sp)
-            if slack_best is not None and o.reward < slack_best:
-                allslack = True
-                for d in o_use:
-                    if not slack[d]:
-                        allslack = False
-                        break
-                if not allslack:
-                    continue
-            dominated = False
-            for p, psp, p_use in keep:
-                if p.reward >= o.reward and p_use.keys() == o_use.keys():
-                    for d, u in psp:
-                        if u > o_use[d]:
-                            break
-                    else:
-                        dominated = True
-                        break
-            if not dominated:
-                keep.append((o, sp, o_use))
-        pruned.append([t[0] for t in keep])
-        pspans.append([t[1] for t in keep])
-
-    # per-dimension decomposable instance -> exact dense DP (opt-in).
-    # When every surviving option charges one scalar dimension and each
-    # request's options are confined to one dimension, requests partition
-    # by dimension into independent multiple-choice knapsacks (budgets are
-    # per-dim, rewards add across requests) — the effectively-1D case the
-    # suffix bound degrades on, generalized to several dims at once.
-    if dp and np is not None:
-        decomposable = True
-        req_dim: Dict[int, object] = {}
-        for r, opts in enumerate(pruned):
-            dims_r = {o.dim for o in opts}
-            if len(dims_r) > 1 or any(isinstance(d, tuple) for d in dims_r):
-                decomposable = False
-                break
-            if dims_r:
-                req_dim[r] = next(iter(dims_r))
-        if decomposable and req_dim:
-            choices = {}
-            reward = 0.0
-            for d in sorted(set(req_dim.values())):
-                rs = [r for r in range(n) if req_dim.get(r) == d]
-                sub_choices, sub_reward = _solve_dp_single_dim(
-                    [pruned[r] for r in rs], d, int(budgets[d]))
-                for i, o in sub_choices.items():
-                    choices[rs[i]] = o
-                reward += sub_reward
-            return Solution(choices=choices, reward=reward, nodes=0,
-                            optimal=True)
+        for o in opts:
+            if slack[o.dim] and (slack_best is None or o.reward > slack_best):
+                slack_best = o.reward
+        keep: List[Option] = []
+        for o in sorted(opts, key=lambda o: (o.usage, -o.reward)):
+            if slack_best is not None and o.reward < slack_best and not slack[o.dim]:
+                continue
+            if not any(p.reward >= o.reward and p.dim == o.dim and p.usage <= o.usage
+                       for p in keep):
+                keep.append(o)
+        pruned.append(keep)
 
     # order: largest best-reward first (tightens the additive bound quickly);
     # requests with *identical* option lists sort adjacently so the DFS can
     # break their symmetry (steady traffic yields many same-class requests
     # with bit-identical rewards)
     best_reward = [max((o.reward for o in opts), default=0.0) for opts in pruned]
-    sig = [tuple(sorted((sp, o.reward) for o, sp in zip(opts, sps)))
-           for opts, sps in zip(pruned, pspans)]
+    sig = [tuple(sorted((o.dim, o.usage, o.reward) for o in opts)) for opts in pruned]
     order = sorted(range(n), key=lambda r: (-best_reward[r], sig[r]))
     # suffix bound: best achievable from request position j onward
     suffix = [0.0] * (n + 1)
@@ -465,18 +158,6 @@ def solve(options: Sequence[Sequence[Option]], budgets: Sequence[int],
     for j in range(n - 2, -1, -1):
         if sig[order[j]] == sig[order[j + 1]]:
             skip_to[j] = skip_to[j + 1]
-    # full multiplicity symmetry break (opt-in with ``dp``): within a run of
-    # identical requests, restrict assignments to the canonical form whose
-    # option indices are non-decreasing along the run.  Any assignment
-    # permutes into it with the same total reward, so the optimum value is
-    # untouched, but a group of m identical requests with c options costs
-    # C(m+c, c) states instead of (c+1)^m — the difference between a
-    # steady-traffic dispatch flood proving optimality and burning the
-    # node cap.  Opt-in because the canonical optimum can map options onto
-    # members differently than the unconstrained first-found optimum
-    # (equal-reward tie reordering; same contract as the DP fast path).
-    same_as_next = [j + 1 < n and sig[order[j]] == sig[order[j + 1]]
-                    for j in range(n)] if dp else [False] * n
 
     seed: Dict[int, Option] = {}
     if warm:
@@ -496,16 +177,11 @@ def solve(options: Sequence[Sequence[Option]], budgets: Sequence[int],
     nodes = 0
     capped = False
 
-    # pre-sort each request's options best-reward-first once (the DFS used
-    # to re-sort at every node on the hot path), and pre-normalize each
-    # option's (dim, usage) spans so the hot loop never re-derives them
-    by = [sorted(zip(opts, sps), key=lambda t: -t[0].reward)
-          for opts, sps in zip(pruned, pspans)]
-    by_reward = [[o for o, _ in lst] for lst in by]
-    by_spans = [[(sp, _usage_total(o)) for o, sp in lst] for lst in by]
+    # each request's options best-reward-first, sorted once
+    by_reward = [sorted(opts, key=lambda o: -o.reward) for opts in pruned]
 
     def dfs(j: int, rem: List[int], cap_rem: int, cur: float,
-            chosen: Dict[int, Option], min_opt: int = 0):
+            chosen: Dict[int, Option]):
         nonlocal best_reward_found, best_choices, nodes, capped
         if capped:
             return
@@ -521,61 +197,22 @@ def solve(options: Sequence[Sequence[Option]], budgets: Sequence[int],
         # capacity-aware admissible bound: every option consumes >= 1 unit,
         # so at most cap_rem more requests can be served; ``order`` is
         # reward-descending, so their best case is the next cap_rem entries
-        # of the suffix array.  This is what lets backlog >> capacity
-        # instances (the dispatch flood case) prove optimality quickly
-        # instead of burning the node cap.
+        # of the suffix array
         stop = j + cap_rem
         bound = suffix[j] - suffix[stop if stop < n else n]
         if cur + bound <= best_reward_found + 1e-12:
             return
         r = order[j]
-        opts_r = by_reward[r]
-        spans_r = by_spans[r]
-        chain = same_as_next[j]
-        # try options best-first, then the skip branch; ``min_opt`` (always
-        # 0 unless ``dp``) is the canonical-form floor within a run of
-        # identical requests
-        for i in range(min_opt, len(opts_r)):
-            sp, use = spans_r[i]
-            for d, u in sp:
-                if u > rem[d]:
-                    break
-            else:
-                o = opts_r[i]
-                for d, u in sp:
-                    rem[d] -= u
+        # try options best-first, then the skip branch
+        for o in by_reward[r]:
+            if o.usage <= rem[o.dim]:
+                rem[o.dim] -= o.usage
                 chosen[r] = o
-                dfs(j + 1, rem, cap_rem - use, cur + o.reward, chosen,
-                    i if chain else 0)
+                dfs(j + 1, rem, cap_rem - o.usage, cur + o.reward, chosen)
                 del chosen[r]
-                for d, u in sp:
-                    rem[d] += u
+                rem[o.dim] += o.usage
         dfs(skip_to[j], rem, cap_rem, cur, chosen)
 
     dfs(0, list(budgets), sum(budgets), 0.0, {})
     return Solution(choices=best_choices, reward=best_reward_found,
                     nodes=nodes, optimal=not capped)
-
-
-def brute_force(options: Sequence[Sequence[Option]], budgets: Sequence[int]) -> float:
-    """Exhaustive reference for tests (tiny instances only)."""
-    best = 0.0
-    choice_lists = [list(opts) + [None] for opts in options]
-    for combo in itertools.product(*choice_lists):
-        rem = list(budgets)
-        total = 0.0
-        ok = True
-        for o in combo:
-            if o is None:
-                continue
-            if o.reward <= 0:
-                continue
-            for d, u in _spans(o):
-                rem[d] -= u
-            if any(rem[d] < 0 for d, _ in _spans(o)):
-                ok = False
-                break
-            total += o.reward
-        if ok:
-            best = max(best, total)
-    return best

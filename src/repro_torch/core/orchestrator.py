@@ -23,24 +23,10 @@ from repro_torch.core.request import Request
 
 class Orchestrator:
     def __init__(self, profiler: Profiler, num_chips: int = 128,
-                 chips_per_node: int = 8, alpha_mode: str = "demand"):
-        """alpha_mode: how VR-type provisioning proportions are computed.
-        "count" is Algorithm 2 as written (α_t = request-count fraction);
-        "demand" weights each request by its unit-time footprint, which
-        prevents starvation of heavy classes whose per-request resource
-        consumption dwarfs the light ones — a beyond-paper refinement kept
-        switchable so EXPERIMENTS.md can compare both."""
+                 chips_per_node: int = 8):
         self.prof = profiler
         self.num_units = num_chips // profiler.k_min
         self.units_per_node = max(1, chips_per_node // profiler.k_min)
-        self.alpha_mode = alpha_mode
-
-    def resize(self, num_chips: int) -> None:
-        """Re-target the orchestrator at a new chip budget.  Used by the
-        fleet layer (core/fleet.py) when the shared-cluster partition moves
-        chips between pipelines; subsequent ``generate`` calls plan within
-        the new budget."""
-        self.num_units = num_chips // self.prof.k_min
 
     # -- Algorithm 2, lines 1-2 ----------------------------------------------
 
@@ -54,11 +40,10 @@ class Orchestrator:
 
     # -- service rates (v_pi) ---------------------------------------------------
 
-    def _service_rates(self, reqs: Sequence[Request], vr: int,
-                       measured: Optional[Dict[str, float]] = None
-                       ) -> Dict[str, float]:
-        """Requests/s per replica for the primary and auxiliaries of type vr.
-        Measured Monitor rates take precedence; the profiler seeds bootstrap."""
+    def _service_rates(self, reqs: Sequence[Request], vr: int) -> Dict[str, float]:
+        """Requests/s per replica for the primary and auxiliaries of type vr,
+        from the profiler (the reference lets measured Monitor rates take
+        precedence; the Monitor is not ported yet)."""
         prim = primary_of_vr(vr)
         sample = [r for r in reqs] or [Request(self.prof.cfg.name, 512)]
 
@@ -72,16 +57,11 @@ class Orchestrator:
                     tot += self.prof.stage_time(r, s, ks)
             return tot / len(sample)
 
-        rates = {
+        return {
             "prim": 1.0 / max(avg_time(prim), 1e-9),
             "auxE": 1.0 / max(avg_time("E"), 1e-9),
             "auxC": 1.0 / max(avg_time("C"), 1e-9),
         }
-        if measured:
-            for key, pi in (("prim", prim), ("auxE", E), ("auxC", C)):
-                if measured.get(pi, 0.0) > 0.0:
-                    rates[key] = measured[pi]
-        return rates
 
     # -- Appendix C.1: Split() -----------------------------------------------------
 
@@ -154,10 +134,10 @@ class Orchestrator:
                         break
                 counts[prim] = want - need
         # fix total
-        drift = total - sum(counts.values())  # detlint: ignore[DET001] int unit counts: exact
+        drift = total - sum(counts.values())
         if drift > 0:
             # surplus units go to the largest bucket
-            t = max(counts, key=lambda t: counts[t])  # detlint: ignore[DET004] counts is split-ordered; tie winner is BENCH-byte-frozen
+            t = max(counts, key=lambda t: counts[t])
             counts[t] += drift
         elif drift < 0:
             # shed units largest-bucket-first.  A single lump subtraction
@@ -167,9 +147,9 @@ class Orchestrator:
             # last unit while it is the only primary left.
             for _ in range(-drift):
                 pick = None
-                n_prim = sum(c for t, c in counts.items()  # detlint: ignore[DET001] int unit counts: exact
+                n_prim = sum(c for t, c in counts.items()
                              if t in PRIMARY_PLACEMENTS)
-                for t in sorted(counts, key=lambda t: -counts[t]):  # detlint: ignore[DET004] equal-count shed order = insertion order; BENCH-byte-frozen
+                for t in sorted(counts, key=lambda t: -counts[t]):
                     if counts[t] <= 0:
                         continue
                     if t in PRIMARY_PLACEMENTS and n_prim <= 1:
@@ -188,8 +168,7 @@ class Orchestrator:
         placements = placements[:total]
         while len(placements) < total:
             placements.append(order[0] if order else EDC)
-        return PlacementPlan(placements, unit_size=self.prof.k_min,
-                             units_per_node=upn)
+        return PlacementPlan(placements, units_per_node=upn)
 
     # -- Algorithm 2 main -----------------------------------------------------------
 
@@ -203,13 +182,13 @@ class Orchestrator:
         return all(self.prof.unit_param_bytes(s) + hw.mem_reserve <= hw.hbm_bytes
                    for s in "EDC")
 
-    def generate(self, reqs: Sequence[Request],
-                 measured_rates: Optional[Dict[str, float]] = None
-                 ) -> Optional[PlacementPlan]:
-        """Algorithm 2.  Returns ``None`` when no feasible placement exists —
-        the same contract ``Scheduler.initial_placement`` exposes, so both
-        bootstrap and re-placement callers handle infeasibility uniformly
-        (the simulator reports OOM; ``maybe_replace`` keeps the old plan)."""
+    def generate(self, reqs: Sequence[Request]) -> Optional[PlacementPlan]:
+        """Algorithm 2.  Returns ``None`` when no feasible placement exists.
+
+        VR-type proportions weight each request by its unit-time footprint
+        (the reference's "demand" mode, its default) rather than counting
+        requests as Algorithm 2 is written: this keeps heavy classes, whose
+        per-request consumption dwarfs the light ones, from starving."""
         if not self.feasible():
             return None
         sample = list(reqs)
@@ -217,15 +196,12 @@ class Orchestrator:
             # bootstrap with a nominal mid-size request
             sample = [Request(self.prof.cfg.name, 1024,
                               4.0 if self.prof.cfg.is_video else 0.0)]
-        if self.alpha_mode == "demand":
-            opt: Counter = Counter()
-            for r in sample:
-                k = self.prof.optimal_degree(r, "D")
-                w = self.prof.stage_time(r, "D", k * self.prof.k_min) * k
-                opt[self.opt_vr(r)] += w
-        else:
-            opt = Counter(self.opt_vr(r) for r in sample)
-        total = sum(opt.values())  # detlint: ignore[DET001] Counter keyed in sample order: insertion-ordered
+        opt: Counter = Counter()
+        for r in sample:
+            k = self.prof.optimal_degree(r, "D")
+            w = self.prof.stage_time(r, "D", k * self.prof.k_min) * k
+            opt[self.opt_vr(r)] += w
+        total = sum(opt.values())
         counts: Dict[str, int] = Counter()
         # lines 3-4: N_t proportional to OptVR distribution
         n_assigned = 0
@@ -241,7 +217,7 @@ class Orchestrator:
         for vr in range(4):
             if n_by_vr[vr] <= 0:
                 continue
-            rates = self._service_rates(sample, vr, measured_rates)
+            rates = self._service_rates(sample, vr)
             for ptype, c in self.split(n_by_vr[vr], vr, rates).items():
                 counts[ptype] += c
         # line 7

@@ -18,7 +18,6 @@ from typing import Dict, FrozenSet, List, Tuple
 EDC, DC, ED, D, E, C = "EDC", "DC", "ED", "D", "E", "C"
 PLACEMENT_TYPES = (EDC, DC, ED, D, E, C)
 PRIMARY_PLACEMENTS = (EDC, DC, ED, D)      # contain D
-AUXILIARY_PLACEMENTS = (E, C)
 
 # Virtual Replica table (paper Table 3)
 #   index -> (primary placement, auxiliary placements, comm stages crossed)
@@ -28,172 +27,52 @@ VIRTUAL_REPLICAS: Dict[int, Tuple[str, Tuple[str, ...], Tuple[str, ...]]] = {
     2: (ED, (C,), ("DC",)),                # V2: Q_DC
     3: (D, (E, C), ("ED", "DC")),          # V3: Q_ED + Q_DC
 }
-VR_TYPES = tuple(VIRTUAL_REPLICAS)
-
-
-def stages_of(ptype: str) -> FrozenSet[str]:
-    return frozenset(ptype)
 
 
 def primary_of_vr(vr: int) -> str:
     return VIRTUAL_REPLICAS[vr][0]
 
 
-def vr_of_primary(ptype: str) -> int:
-    for vr, (prim, _, _) in VIRTUAL_REPLICAS.items():
-        if prim == ptype:
-            return vr
-    raise KeyError(ptype)
-
-
 @dataclasses.dataclass
 class PlacementPlan:
     """P = {π_g}: placement type per scheduling unit (k_min chips).
 
-    ``pipeline`` tags the owning pipeline when the plan is one slice of a
-    shared-cluster fleet plan (core/fleet.py): each scheduling unit then
-    carries ``(pipeline, placement_type)``.  Single-tenant plans leave it
-    empty — the 1-pipeline special case.
+    Counterpart of the reference's plan for one pipeline: the fleet's
+    pipeline tags, unit lending and elastic decommissioning are not ported.
     """
     placements: List[str]                 # index = unit id
-    unit_size: int = 1                    # chips per unit (App. E.2 MP fold)
-    units_per_node: int = 8               # 8-chip nodes / unit_size
-    pipeline: str = ""                    # owning pipeline in a fleet plan
+    units_per_node: int = 8               # scheduling units per 8-chip node
 
     def __post_init__(self):
         assert all(p in PLACEMENT_TYPES for p in self.placements)
-
-    def tagged(self, unit: int) -> Tuple[str, str]:
-        """(pipeline, placement_type) of one scheduling unit."""
-        return (self.pipeline, self.placements[unit])
 
     @property
     def num_units(self) -> int:
         return len(self.placements)
 
-    def node_of(self, unit: int) -> int:
-        return unit // self.units_per_node
-
-    def _index(self):
-        """Lazy unit indices (plans are immutable after construction except
-        for the fleet's unit-lending overlay, which invalidates the cache):
-        these lookups run on every scheduler wake-up."""
+    def _index(self) -> Tuple[Dict[str, List[int]], Dict[str, FrozenSet[int]]]:
+        """Lazy unit indices by placement type (plans are immutable after
+        construction): these lookups run on every scheduler wake-up."""
         idx = self.__dict__.get("_idx")
         if idx is None:
-            inactive = self.__dict__.get("_inactive") or ()
-            decomm = self.__dict__.get("_decommissioned") or ()
             by_type: Dict[str, List[int]] = {}
-            with_stage: Dict[str, List[int]] = {}
             for g, p in enumerate(self.placements):
-                if g in inactive or g in decomm:
-                    continue
                 by_type.setdefault(p, []).append(g)
-                for s in p:
-                    with_stage.setdefault(s, []).append(g)
-            primary = frozenset(g for g, p in enumerate(self.placements)
-                                if p in PRIMARY_PLACEMENTS
-                                and g not in inactive and g not in decomm)
-            tsets = {p: frozenset(gs) for p, gs in by_type.items()}
-            idx = self.__dict__["_idx"] = (by_type, with_stage, primary,
-                                           tsets)
+            idx = self.__dict__["_idx"] = (
+                by_type, {p: frozenset(gs) for p, gs in by_type.items()})
         return idx
-
-    def type_set(self, ptype: str) -> FrozenSet[int]:
-        """``units_of_type`` as a frozenset — for C-speed intersections
-        with the engine's idle set on the dispatch hot path (same active
-        view, same cache invalidation)."""
-        return self._index()[3].get(ptype, frozenset())
-
-    # -- fleet unit-lending overlay (core/lending.py) -------------------------
-
-    def extend(self, ptype: str) -> int:
-        """Append one scheduling unit (a borrowed foreign unit hosting E/C
-        work for this plan's pipeline); returns its unit id.  Only the fleet
-        lending broker calls this — single-tenant plans never grow.
-        Extended units are an *overlay*: dispatch indices see them while
-        active, but ``type_histogram``/``count_of_type`` never count them
-        (they describe the plan's own layout, e.g. for ``maybe_replace``'s
-        no-op comparison against a freshly generated plan)."""
-        assert ptype in PLACEMENT_TYPES
-        self.placements.append(ptype)
-        self.__dict__.setdefault("_extended", set()).add(len(self.placements) - 1)
-        self.__dict__.pop("_idx", None)
-        return len(self.placements) - 1
-
-    def set_active(self, unit: int, active: bool) -> None:
-        """(De)activate one unit in the dispatch indices.  A lender's unit
-        disappears from its own plan while on loan; a borrower's loan slot
-        disappears once the unit is returned.  ``placements[unit]`` stays
-        valid either way, so engine bookkeeping keeps working."""
-        inactive = self.__dict__.setdefault("_inactive", set())
-        if active:
-            inactive.discard(unit)
-        else:
-            inactive.add(unit)
-        self.__dict__.pop("_idx", None)
-
-    def is_active(self, unit: int) -> bool:
-        return unit not in (self.__dict__.get("_inactive") or ())
-
-    def is_extended(self, unit: int) -> bool:
-        """True for loan-slot overlay units (not part of the own layout)."""
-        return unit in (self.__dict__.get("_extended") or ())
-
-    # -- elastic capacity overlay (core/elastic.py) ---------------------------
-
-    def decommission(self, unit: int) -> None:
-        """Remove one unit from the dispatch indices without touching the
-        plan's own layout: a doomed unit draining ahead of a preemption
-        notice, or a quarantined slow-failing unit.  Unlike ``set_active``
-        — the lending overlay, which loan close/revive freely toggles — a
-        decommissioned unit stays out until ``commission``:
-        ``set_active(unit, True)`` cannot resurrect it.  Counted by
-        ``count_of_type``/``type_histogram`` like an inactive unit (the
-        layout still owns the chips until a re-partition reassigns them),
-        so ``maybe_replace``'s no-op comparison does not churn."""
-        self.__dict__.setdefault("_decommissioned", set()).add(unit)
-        self.__dict__.pop("_idx", None)
-
-    def commission(self, unit: int) -> None:
-        """Undo ``decommission`` (a quarantined unit recovering)."""
-        decomm = self.__dict__.get("_decommissioned")
-        if decomm is not None:
-            decomm.discard(unit)
-        self.__dict__.pop("_idx", None)
-
-    def is_decommissioned(self, unit: int) -> bool:
-        return unit in (self.__dict__.get("_decommissioned") or ())
-
-    def units_with(self, stage: str) -> List[int]:
-        return self._index()[1].get(stage, [])
 
     def units_of_type(self, ptype: str) -> List[int]:
         return self._index()[0].get(ptype, [])
 
-    @property
-    def primary_units(self) -> FrozenSet[int]:
-        """Units whose placement carries the D stage."""
-        return self._index()[2]
-
-    def retype(self, unit: int, ptype: str) -> None:
-        """Change one unit's placement type (loan-slot reuse)."""
-        assert ptype in PLACEMENT_TYPES
-        self.placements[unit] = ptype
-        self.__dict__.pop("_idx", None)
+    def type_set(self, ptype: str) -> FrozenSet[int]:
+        """``units_of_type`` as a frozenset, for set intersections with the
+        idle set on the dispatch path."""
+        return self._index()[1].get(ptype, frozenset())
 
     def count_of_type(self, ptype: str) -> int:
-        """Count over the plan's *own* layout: loan-slot overlay units are
-        excluded, and a lent-out (inactive) unit still counts — the layout
-        owns it even while its chips are on loan.  Dispatch-time candidate
-        sets use ``units_of_type`` instead, which is the active view."""
-        ext = self.__dict__.get("_extended") or ()
-        return sum(1 for g, p in enumerate(self.placements)
-                   if p == ptype and g not in ext)
+        return len(self.units_of_type(ptype))
 
     def type_histogram(self) -> Dict[str, int]:
         return {t: self.count_of_type(t) for t in PLACEMENT_TYPES
                 if self.count_of_type(t)}
-
-    def copy(self) -> "PlacementPlan":
-        return PlacementPlan(list(self.placements), self.unit_size,
-                             self.units_per_node, self.pipeline)

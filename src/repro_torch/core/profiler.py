@@ -34,27 +34,25 @@ class Hardware:
     peak_flops: float            # dense bf16 FLOP/s
     hbm_bw: float                # device memory bytes/s
     link_bw: float               # chip-to-chip bytes/s inside a node
-    dcn_bw: float                # bytes/s per chip between nodes
-    host_bw: float               # host<->device staging path, bytes/s
     hbm_bytes: int               # device memory
     mem_reserve: int             # per-chip runtime reserve
     mfu: float                   # sustained matmul efficiency (long sequences)
     mfu_conv: float              # conv stacks' efficiency
     seq_mfu_knee: int            # per-chip tokens below which MFU degrades
     dispatch_overhead: float     # s, per-dispatch CPU scheduling cost
-    comm_group_init: float       # s, lazy (non-hot-set) communicator build
 
 
 # NVIDIA H100 SXM (data sheet): 989 TFLOP/s dense bf16, 3.35 TB/s HBM3, 80 GB,
-# NVLink 900 GB/s; 400 Gb/s InfiniBand and PCIe Gen5 x16 per GPU as in a
-# DGX H100. The reserve (CUDA context, library workspaces), the efficiency
-# knobs and the host costs are not yet calibrated on the card.
+# NVLink 900 GB/s. The reserve (CUDA context, library workspaces), the
+# efficiency knobs and the host cost are not yet calibrated on the card.
 H100_SXM = Hardware(
-    name="H100-SXM", peak_flops=989e12, hbm_bw=3.35e12, link_bw=900e9, dcn_bw=50e9,
-    host_bw=64e9, hbm_bytes=80 * 10 ** 9, mem_reserve=2 ** 30, mfu=0.5, mfu_conv=0.12,
-    seq_mfu_knee=384, dispatch_overhead=0.004, comm_group_init=0.05)
+    name="H100-SXM", peak_flops=989e12, hbm_bw=3.35e12, link_bw=900e9,
+    hbm_bytes=80 * 10 ** 9, mem_reserve=2 ** 30, mfu=0.5, mfu_conv=0.12,
+    seq_mfu_knee=384, dispatch_overhead=0.004)
 
-PARALLEL_DEGREES = (1, 2, 4, 8, 16, 32)  # >8 reachable only with cross-node SP
+# SP degrees in scheduling units; those above one node's worth are the
+# reference's cross-node SP, which is not ported, so they are never chosen
+PARALLEL_DEGREES = (1, 2, 4, 8, 16, 32)
 EFFICIENCY_THRESHOLD = 0.8   # paper footnote 4/5
 
 
@@ -75,21 +73,14 @@ class StageModelInfo:
 class Profiler:
     """Cost/memory model for one diffusion pipeline."""
 
-    def __init__(self, cfg: pipe_lib.PipelineConfig,
-                 force_k_min: Optional[int] = None,
-                 cross_node_sp: bool = False, hw: Hardware = H100_SXM):
+    def __init__(self, cfg: pipe_lib.PipelineConfig, hw: Hardware = H100_SXM):
         self.cfg = cfg
         self.hw = hw
         self.info = self._stage_infos(cfg)
-        # force_k_min=1 models baselines that do not use the App.-E.2 MP fold
-        self.k_min = force_k_min if force_k_min else self._compute_k_min()
+        self.k_min = self._compute_k_min()
         # SP instances are intra-node in the paper (§6.2, a PCIe-box
-        # constraint), and on H100 nodes SP stays inside the 8-GPU NVLink
-        # domain by default; cross_node_sp extends degrees to 32 units,
-        # still filtered by efficiency
-        self.cross_node_sp = cross_node_sp
-        base = max(1, 8 // self.k_min)
-        self.max_degree_units = 32 // self.k_min if cross_node_sp else base
+        # constraint); on H100 nodes SP stays inside the 8-GPU NVLink domain
+        self.max_degree_units = max(1, 8 // self.k_min)
         # memo tables keyed by request class — request mixes repeat heavily,
         # exactly the paper's "pre-profiled candidate resolutions" (§5.1)
         self._time_memo: Dict[Tuple, float] = {}
@@ -270,24 +261,6 @@ class Profiler:
         self._batch_memo[key] = t
         return t
 
-    def optimal_batch(self, req: Request, stage: str, k_chips: int,
-                      cap: int = 8) -> int:
-        """Largest batch whose latency stays within 1.2x single (E.1)."""
-        key = (req.pipeline, req.resolution, req.seconds, req.cond_len,
-               stage, k_chips, "bs")
-        hit = self._deg_memo.get(key)
-        if hit is not None:
-            return hit
-        t1 = self.stage_time(req, stage, k_chips)
-        best = 1
-        bs = 2
-        while bs <= cap:
-            if self.batched_stage_time(req, stage, k_chips, bs) <= 1.2 * t1:
-                best = bs
-            bs *= 2
-        self._deg_memo[key] = best
-        return best
-
     def speedup(self, req: Request, stage: str, k_chips: int) -> float:
         return self.stage_time(req, stage, 1) / self.stage_time(req, stage, k_chips)
 
@@ -352,21 +325,3 @@ class Profiler:
             hit = self.peak_mem(req, ptype, k_units) <= self.hw.hbm_bytes
             self._fits_memo[key] = hit
         return hit
-
-    # -- inter-stage communication -------------------------------------------------
-
-    def comm_bytes(self, req: Request, edge: str) -> float:
-        """Q_ED / Q_DC tensor volumes (bf16)."""
-        if edge == "ED":
-            return req.cond_len * self.info["E"].d_model * 2.0
-        if edge == "DC":
-            return self.latent_tokens(req) * self.cfg.dit.latent_dim * 2.0
-        raise KeyError(edge)
-
-    def transfer_time(self, nbytes: float, intra_node: bool) -> float:
-        return nbytes / (self.hw.link_bw if intra_node else self.hw.dcn_bw) + 2e-4
-
-    def stage_load_time(self, stage: str, via_host: bool) -> float:
-        """Adjust-on-Dispatch replica load (P2P peer vs pinned-host path)."""
-        per_chip = self.info[stage].bytes / self.k_min
-        return per_chip / (self.hw.host_bw if via_host else self.hw.link_bw) + 1e-3

@@ -18,6 +18,17 @@ from repro_torch.kernels import flash_attention as tfa
 BF16_TOL = 2e-2
 
 
+def _assert_attention_close(got, want):
+    """Attention outputs of N(0, 1) inputs are small (rms ~ sqrt(e / L)), so
+    the limits scale with their rms, as in chip_smoke.py: elementwise
+    3e-2 * rms + 2**-6 * |want| (two bf16 ulps), and rms(err) <= 5e-3 * rms."""
+    d = (got.float() - want.float()).abs()
+    w = want.float()
+    rms = w.pow(2).mean().sqrt()
+    assert (d <= 3e-2 * rms + 2.0 ** -6 * w.abs()).all(), d.max().item()
+    assert d.pow(2).mean().sqrt() <= 5e-3 * rms
+
+
 def _qkv(seed, b, lq, lkv, h, d):
     rng = np.random.default_rng(seed)
     return [torch.from_numpy(rng.standard_normal((b, n, h, d)).astype(np.float32))
@@ -41,7 +52,7 @@ def test_flash_attention_kernel_matches_plain_on_card(cuda, l, d, causal, window
     got = tfa.flash_attention(q, k, v, causal=causal, window=window, softcap=softcap)
     mask = ops.attention_mask(l, l, window, cuda) if causal else None
     want = ref.attention_ref(q, k, v, mask, softcap)
-    torch.testing.assert_close(got.float(), want.float(), atol=BF16_TOL, rtol=BF16_TOL)
+    _assert_attention_close(got, want)
 
 
 @pytest.mark.gpu

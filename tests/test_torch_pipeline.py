@@ -3,7 +3,8 @@
 Encode -> Diffuse -> Decode on the sd3 SMOKE config with the noise passed
 in; parameter counts of the full sd3 built on the ``meta`` device; and,
 under the reference's own hardware constants, the profiler's stage times and
-the planners' placements and dispatch decisions, which must be bit-equal.
+the planners' placements, ILP solves and dispatch decisions, which must be
+bit-equal: both planners are pure Python over the same cost model.
 """
 import dataclasses
 
@@ -15,16 +16,20 @@ import torch
 
 import repro.configs as JC
 import repro_torch.configs as TC
+from repro.core import ilp as jilp
 from repro.core import profiler as jprof
 from repro.core.dispatcher import Dispatcher as JDispatcher
 from repro.core.orchestrator import Orchestrator as JOrchestrator
+from repro.core.placement import PlacementPlan as JPlan
 from repro.core.request import Request as JRequest
 from repro.models import diffusion as jdiff
 from repro.models import pipeline as jpl
 from repro_torch import convert
+from repro_torch.core import ilp as tilp
 from repro_torch.core import profiler as tprof
 from repro_torch.core.dispatcher import Dispatcher as TDispatcher
 from repro_torch.core.orchestrator import Orchestrator as TOrchestrator
+from repro_torch.core.placement import PlacementPlan as TPlan
 from repro_torch.core.request import Request as TRequest
 from repro_torch.launch import quickstart
 from repro_torch.models import pipeline as tpl
@@ -32,10 +37,9 @@ from repro_torch.models import pipeline as tpl
 # the reference's TPU constant set, read from the JAX package
 REF_HW = tprof.Hardware(
     name="reference", peak_flops=jprof.PEAK_FLOPS, hbm_bw=jprof.HBM_BW, link_bw=jprof.ICI_BW,
-    dcn_bw=jprof.DCN_BW, host_bw=jprof.HOST_BW, hbm_bytes=jprof.HBM_BYTES,
-    mem_reserve=jprof.MEM_RESERVE, mfu=jprof.MFU, mfu_conv=jprof.MFU_CONV,
-    seq_mfu_knee=jprof.SEQ_MFU_KNEE, dispatch_overhead=jprof.DISPATCH_OVERHEAD,
-    comm_group_init=jprof.COMM_GROUP_INIT)
+    hbm_bytes=jprof.HBM_BYTES, mem_reserve=jprof.MEM_RESERVE, mfu=jprof.MFU,
+    mfu_conv=jprof.MFU_CONV, seq_mfu_knee=jprof.SEQ_MFU_KNEE,
+    dispatch_overhead=jprof.DISPATCH_OVERHEAD)
 
 RESOLUTIONS = (512, 1024, 1536)      # the quickstart's three requests
 
@@ -139,6 +143,100 @@ def test_plans_and_dispatch_bit_equal_under_reference_hardware(chips):
 
     assert [key(d) for d in tdec] == [key(d) for d in jdec]
     assert tdec                              # the planners placed something
+
+
+def _instance(seed):
+    """Random dispatch instance: options drawn on 4 budget dims, many of them
+    repeated (same-class requests), plus a warm start from a random subset."""
+    rng = np.random.default_rng(seed)
+    n = int(rng.integers(1, 40))
+    budgets = [int(b) for b in rng.integers(0, 9, size=4)]
+    classes = []
+    for _ in range(int(rng.integers(1, 6))):
+        opts = []
+        for _ in range(int(rng.integers(0, 7))):
+            opts.append((int(rng.integers(0, 4)), int(rng.choice([1, 2, 4, 8])),
+                         float(np.round(rng.uniform(-50, 1000), 3))))
+        classes.append(opts)
+    rows = [classes[int(rng.integers(0, len(classes)))] for _ in range(n)]
+    warm = {}
+    for r in range(n):
+        if rows[r] and rng.random() < 0.3:
+            d, u, _ = rows[r][int(rng.integers(0, len(rows[r])))]
+            warm[r] = (d, u)
+    return rows, budgets, warm
+
+
+@pytest.mark.parametrize("seed", range(40))
+@pytest.mark.parametrize("node_cap", [25, 200_000])
+def test_ilp_solve_bit_equal(seed, node_cap):
+    rows, budgets, warm = _instance(seed)
+    j = jilp.solve([[jilp.Option(*o) for o in opts] for opts in rows], budgets,
+                   node_cap=node_cap, warm=warm or None)
+    t = tilp.solve([[tilp.Option(*o) for o in opts] for opts in rows], budgets,
+                   node_cap=node_cap, warm=warm or None)
+    assert (t.reward, t.nodes, t.optimal) == (j.reward, j.nodes, j.optimal)
+    assert ({r: (o.dim, o.usage, o.reward) for r, o in t.choices.items()}
+            == {r: (o.dim, o.usage, o.reward) for r, o in j.choices.items()})
+    assert list(t.choices) == list(j.choices)
+
+
+# every placement type, two 8-unit nodes
+MIXED = ["EDC"] * 2 + ["DC"] * 2 + ["ED"] * 2 + ["D"] * 2 + ["D"] * 2 + ["E"] * 3 + ["C"] * 3
+
+
+def _mixed_requests(request_cls, prof, seed):
+    rng = np.random.default_rng(seed)
+    reqs = []
+    for i in range(24):
+        res = int(rng.choice([256, 512, 1024, 1536, 2048]))
+        r = request_cls("sd3", res, cond_len=int(rng.choice([77, 128])),
+                        arrival=0.01 * i)
+        # loose, tight and hopeless deadlines: the on-time and the late
+        # reward paths
+        r.deadline = r.arrival + float(rng.choice([0.3, 1.0, 2.5, 6.0])) * prof.pipeline_time(r)
+        reqs.append(r)
+    return reqs
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_dispatch_rounds_bit_equal_on_a_mixed_plan(seed):
+    """Several dispatch rounds over one pending set: grants free and take
+    units, so later rounds use the warm start and the auxiliary units."""
+    jp = jprof.Profiler(JC.get("sd3"))
+    tp = tprof.Profiler(TC.get("sd3"), hw=REF_HW)
+    jplan = JPlan(list(MIXED), unit_size=jp.k_min, units_per_node=8)
+    tplan = TPlan(list(MIXED), units_per_node=8)
+    jpend, tpend = _mixed_requests(JRequest, jp, seed), _mixed_requests(TRequest, tp, seed)
+    jd, td = JDispatcher(jp), TDispatcher(tp)
+    idle = set(range(len(MIXED)))
+    free_at = {g: 0.0 for g in idle}
+    tau, rounds = 0.0, 0
+    while tpend and rounds < 12:
+        jdec = jd.dispatch(jpend, jplan, set(idle), dict(free_at), tau)
+        tdec = td.dispatch(tpend, tplan, set(idle), dict(free_at), tau)
+
+        def key(d):
+            return (d.request.resolution, d.request.cond_len, d.vr_type, d.degree,
+                    d.d_units, d.e_units, d.c_units)
+
+        assert [key(d) for d in tdec] == [key(d) for d in jdec]
+        assert td.last_solve_stats == jd.last_solve_stats
+        done = {d.request.rid for d in jdec}
+        jpend = [r for r in jpend if r.rid not in done]
+        done = {d.request.rid for d in tdec}
+        tpend = [r for r in tpend if r.rid not in done]
+        for d in tdec:
+            run = tp.stage_time(d.request, "D", d.degree * tp.k_min)
+            for g in set(d.d_units) | set(d.e_units) | set(d.c_units):
+                idle.discard(g)
+                free_at[g] = max(free_at[g], tau) + run
+        # the next round starts when the earliest busy unit frees up
+        busy = [free_at[g] for g in free_at if g not in idle]
+        tau = min(busy) if busy else tau + 0.1
+        idle |= {g for g in free_at if free_at[g] <= tau}
+        rounds += 1
+    assert rounds > 1
 
 
 def test_one_chip_places_one_edc_unit():
