@@ -17,9 +17,22 @@ Phases:
      plain versions): the encoder's output and one DiT forward's output;
   5. serve three full-width, full-depth sd3 requests (512, 1024, 1536 px,
      20 steps) stage by stage through ``repro_torch.launch.quickstart.serve``,
-     counting the kernels' launches.
+     counting the kernels' launches;
+  6. hold K3 (the gated linear-attention scan) against its plain version at
+     every shape the LLM serve phase gives it, at the reference's kernel-test
+     shapes and at the decay floor (where it must also give the same result
+     when the sequence is cut at a point that is no chunk boundary);
+  7. check that a full-width cut of rwkv6-3b (2 layers) and of zamba2-1.2b
+     (its 6-layer cycle) agrees on the card (bf16, kernels) with the same
+     weights on the CPU (float32, plain versions): the
+     last-token logits of an 1100-token prompt, the final SSM states, and the
+     logits after 4 decode steps;
+  8. serve eight requests (prompts of 256..2048 tokens, 32 new tokens, 4 per
+     group) on full-width, full-depth rwkv6-3b and then zamba2-1.2b through
+     ``repro_torch.launch.serve_llm.serve``, counting the kernels' launches.
 
-The second-to-last lines are the card's name and power limit, then one JSON
+K1 is also held, timed and counted at zamba2's causal prefill shapes. The
+second-to-last lines are the card's name and power limit, then one JSON
 object with a record per kernel; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises: the script then
 exits non-zero and prints no such line.
@@ -44,12 +57,16 @@ PEAK_HBM = 3.35e12            # bytes/s
 RESOLUTIONS = (512, 1024, 1536)
 # K1, bf16: attention outputs of N(0, 1) inputs are small (rms ~ sqrt(e / L)),
 # so its limits scale with the output's rms. Elementwise, |kernel - plain|
-# <= K1_ATOL * rms(plain) + K1_RTOL * |plain| (two bf16 ulps); and in all,
-# rms(kernel - plain) <= K1_RMS * rms(plain). Rounding alone gives about 0.5x
-# and 0.3% of these; letting the 51 padded keys of the ragged last tile in at
-# score 0 fails the first at L = 1101 and the second at L = 1101 and 4173
-# (tests/test_torch_smoke_checks.py holds both with a CPU model of K1's
-# rounding, whose maximum errors agree with the card's)
+# <= K1_ATOL * rms(row) + K1_RTOL * |plain| (two bf16 ulps), where rms(row)
+# is the rms of the plain output's query row (over heads and D): a causal
+# row t averages only t + 1 values, so early rows are large and their
+# probabilities' rounding (at another place in K1 than in the plain version)
+# shows where the terms cancel. In all, rms(kernel - plain) <= K1_RMS *
+# rms(plain). Rounding alone gives about 0.5x and 0.3% of these; letting the
+# 51 padded keys of the ragged last tile in at score 0 fails the first at
+# L = 1101 and the second at L = 1101 and 4173 (tests/test_torch_smoke_checks.py
+# holds both with a CPU model of K1's rounding, whose maximum errors agree
+# with the card's)
 K1_ATOL = 3e-2
 K1_RTOL = 2.0 ** -6
 K1_RMS = 5e-3
@@ -64,6 +81,22 @@ K2_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 ENC_TOL = 5e-2
 EPS_TOL = 1e-2
 L2_BYTES = 50 * 2 ** 20
+# K3: the kernel and its plain version keep the state and every sum in f32 and
+# differ only in the order of the sums over K: the state and f32 outputs agree
+# to 1e-5 of their rms (elementwise: 1e-5 rms + 1e-5 |plain|); bf16 outputs
+# are those f32 values rounded, so at most one bf16 ulp apart (1e-5 rms +
+# 2^-7 |plain|)
+K3_RMS = 1e-5
+K3_REL = {"float32": 1e-5, "bfloat16": 2.0 ** -7}
+# phase 7, bf16 card vs f32 CPU, each reading rms(err) / rms(ref): the CPU's
+# own bf16 run of the same cut reads 0.9-1.9%, and a scan that drops rwkv6's
+# bonus or reads one token late in zamba2 moves a reading to 8-12%
+# (tests/test_torch_smoke_checks.py prints both and holds the limits between)
+LLM_CUT_TOL = {"logits": 0.04, "ssm_state": 0.04, "decode_logits": 0.04}
+LLM_ARCHS = ("rwkv6-3b", "zamba2-1.2b")
+LLM_REQUESTS, LLM_LENGTHS, LLM_MAX_NEW = 8, (256, 2048), 32
+LLM_BATCH = 4                 # serve_llm.MAX_BATCH: requests per ServeEngine group
+CUT_PROMPT, CUT_BATCH, CUT_DECODE = 1100, 2, 4
 
 
 def smi() -> str:
@@ -79,12 +112,13 @@ def agree(got, want, tol: float):
 
 
 def k1_agree(got, want):
-    """(max |err|, rms(err) / rms(want), whether K1's two limits hold)."""
+    """(max |err|, rms(err) / rms(want), whether K1's two limits hold);
+    (B, L, H, D) outputs."""
     d = (got.float() - want.float()).abs()
     w = want.float()
-    rms = w.pow(2).mean().sqrt()
-    rel = (d.pow(2).mean().sqrt() / rms).item()
-    ok = bool((d <= K1_ATOL * rms + K1_RTOL * w.abs()).all().item()) and rel <= K1_RMS
+    rel = (d.pow(2).mean().sqrt() / w.pow(2).mean().sqrt()).item()
+    row = w.pow(2).mean(dim=(2, 3), keepdim=True).sqrt()
+    ok = bool((d <= K1_ATOL * row + K1_RTOL * w.abs()).all().item()) and rel <= K1_RMS
     return d.max().item(), rel, ok
 
 
@@ -136,18 +170,24 @@ def ring(make, nbytes: int) -> list:
     return [make() for _ in range(max(1, math.ceil(2 * L2_BYTES / nbytes)))]
 
 
-def plain_by_heads(ref, q, k, v):
+def plain_by_heads(ref, q, k, v, mask=None):
     """The plain attention, eight heads at a time: its f32 scores are large."""
     import torch
-    return torch.cat([ref.attention_ref(q[:, :, i:i + 8], k[:, :, i:i + 8], v[:, :, i:i + 8])
+    return torch.cat([ref.attention_ref(q[:, :, i:i + 8], k[:, :, i:i + 8], v[:, :, i:i + 8], mask)
                       for i in range(0, q.shape[2], 8)], dim=2)
 
 
-def check_flash_attention(torch, ops, ref, fa, gen, records):
+def check_flash_attention(torch, ops, ref, fa, gen, records, causal_shapes):
+    """``causal_shapes``: the (B, L) of each zamba2 prefill group."""
     import torch.nn.functional as F
     dev = "cuda"
-    main = [(1, (r // 16) ** 2 + 77, (r // 16) ** 2 + 77, 24, 64, False, 0, 0.0)
+    # (path, shape) of every call the serve phases make: the DiT's, then
+    # zamba2's causal prefill with 32 heads of 64
+    main = [("sd3", (1, (r // 16) ** 2 + 77, (r // 16) ** 2 + 77, 24, 64, False, 0, 0.0))
             for r in RESOLUTIONS]
+    main += [("zamba2-1.2b", (b, l, l, 32, 64, True, 0, 0.0)) for b, l in causal_shapes]
+    timed = {shape: path for path, shape in main}
+    timed[(1, 4173, 4173, 24, 128, False, 0, 0.0)] = None      # flux's D, later
     extra = [(1, 4173, 4173, 24, 128, False, 0, 0.0)]
     # the reference's kernel-test shapes (tests/test_kernels.py), head dim
     # raised to the kernel's 64/128
@@ -158,7 +198,9 @@ def check_flash_attention(torch, ops, ref, fa, gen, records):
                                 (0, 0.0, False)]:
         extra.append((2, 96, 96, 2, 64, causal, window, cap))
     out = []
-    for b, lq, lkv, h, d, causal, window, cap in main + extra:
+    for shape in [m[1] for m in main] + extra:
+        b, lq, lkv, h, d, causal, window, cap = shape
+
         def make():
             return tuple(torch.randn((b, n, h, d), generator=gen, device=dev).to(torch.bfloat16)
                          for n in (lq, lkv, lkv))
@@ -168,8 +210,8 @@ def check_flash_attention(torch, ops, ref, fa, gen, records):
         torch.cuda.synchronize()
         if not torch.isfinite(o).all():
             raise RuntimeError(f"flash_attention: non-finite output at {(b, lq, lkv, h, d)}")
-        if mask is None:                # compare per head group: the f32 scores are large
-            want = plain_by_heads(ref, q, k, v)
+        if cap == 0.0:                  # compare per head group: the f32 scores are large
+            want = plain_by_heads(ref, q, k, v, mask)
         else:
             want = ref.attention_ref(q, k, v, mask, cap)
         err, rel, ok = k1_agree(o, want)
@@ -191,23 +233,23 @@ def check_flash_attention(torch, ops, ref, fa, gen, records):
         rec["bound_ms"] = max(flops / PEAK_BF16_TENSOR, nbytes / PEAK_HBM) * 1e3
         rec["bound_by"] = "operations" if flops / PEAK_BF16_TENSOR > nbytes / PEAK_HBM \
             else "bytes"
-        if (b, lq, lkv, h, d, causal) in [m[:6] for m in main] or d == 128 and lq == 4173:
+        if shape in timed:
             sets = ring(make, nbytes)
 
             def kernel(q, k, v):
-                return fa.flash_attention(q, k, v, causal=False)
+                return fa.flash_attention(q, k, v, causal=causal)
 
             def plain(q, k, v):
-                return plain_by_heads(ref, q, k, v)
+                return plain_by_heads(ref, q, k, v, mask)
 
             def library(q, k, v):
-                return F.scaled_dot_product_attention(q, k, v)
+                return F.scaled_dot_product_attention(q, k, v, is_causal=causal)
 
             rec["ms"] = device_ms(kernel, sets, 20)
             rec["plain_ms"] = device_ms(plain, sets[:1], 3)
             rec["library_ms"] = device_ms(
                 library, [tuple(t.transpose(1, 2) for t in s) for s in sets], 20)
-            rec["main_path"] = (b, lq, lkv, h, d, causal) in [m[:6] for m in main]
+            rec["main_path"] = timed[shape]
         print("K1 flash_attention " + json.dumps(rec), flush=True)
         out.append(rec)
         del q, k, v, o, want
@@ -248,7 +290,7 @@ def check_adaln_rmsnorm(torch, ref, ar, gen, records):
             rec["call_ms"] = call_ms(ar.adaln_rmsnorm, sets, 50)
             rec["plain_ms"] = device_ms(ref.adaln_rmsnorm_ref, sets, 20)
             rec["library_ms"] = None       # no single PyTorch call computes it
-            rec["main_path"] = d == 1536
+            rec["main_path"] = "sd3" if d == 1536 else None
         print("K2 adaln_rmsnorm " + json.dumps(rec), flush=True)
         out.append(rec)
     records["adaln_rmsnorm"] = out
@@ -303,6 +345,231 @@ def check_cut(torch, C, pl):
     return out
 
 
+def llm_requests(serve_llm, cfg):
+    """Phase 8's requests: chat and RAG prompts of 256..2048 tokens, drawn from a seed."""
+    return serve_llm.requests_from_seed(cfg.vocab_size, LLM_REQUESTS, LLM_LENGTHS, LLM_MAX_NEW)
+
+
+def group_lengths(reqs) -> list:
+    """The padded prompt length of each ServeEngine group."""
+    return [max(r.prompt.shape[-1] for r in reqs[i:i + LLM_BATCH])
+            for i in range(0, len(reqs), LLM_BATCH)]
+
+
+def scan_inputs(torch, gen, b, h, l, dk, dv, *, bonus, shared, dtype, floor=False,
+                state=False):
+    """K3's inputs; ``shared``: q, k and the decay shared across heads, as
+    stride-0 views, the way Mamba2 passes them."""
+    def rn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    hq = 1 if shared else h
+    q, k = (rn(b, hq, l, dk).to(dtype).expand(b, h, l, dk) for _ in range(2))
+    if floor:
+        decay = torch.full((b, hq, l, dk), math.exp(-5.4), device="cuda")
+    else:
+        decay = torch.exp(-torch.exp(rn(b, hq, l, 1 if shared else dk)))
+    v = rn(b, h, l, dv).to(dtype)
+    return (q, k, v, decay.expand(b, h, l, dk), rn(h, dk) if bonus else None,
+            rn(b, h, dk, dv) if state else None)
+
+
+def scan_agree(got, want):
+    """(max |err| of the output, of the state, whether K3's limits hold)."""
+    errs, ok = [], True
+    for g, w in zip(got, want):
+        d = (g.float() - w.float()).abs()
+        rms = w.float().pow(2).mean().sqrt()
+        rel = K3_REL[str(g.dtype).split(".")[-1]]
+        ok &= bool((d <= K3_RMS * rms + rel * w.float().abs()).all().item())
+        errs.append(d.max().item())
+    return errs[0], errs[1], ok
+
+
+def unique_bytes(t) -> int:
+    """Bytes a tensor holds: a stride-0 (broadcast) dimension counts once."""
+    n = 1
+    for size, stride in zip(t.shape, t.stride()):
+        n *= size if stride else 1
+    return n * t.element_size()
+
+
+def check_ssm_scan(torch, ref, ss, gen, records, serving_shapes):
+    """``serving_shapes``: (path, B, L, H, bonus, shared) of every call phase 8
+    makes: rwkv6's (B, 40, L, 64, 64) with the bonus, zamba2's (B, 64, L, 64,
+    64) without it and with q, k and the decay shared across heads."""
+    main = [(path, (b, h, l, 64, 64, bonus, shared, torch.bfloat16, False))
+            for path, b, l, h, bonus, shared in serving_shapes]
+    timed = {shape: path for path, shape in main}
+    # the reference's kernel-test shapes (tests/test_kernels.py), f32, with an
+    # initial state; then the decay floor at L >= 64
+    extra = [(b, h, l, dk, dv, bonus, False, torch.float32, False)
+             for b, h, l, dk, dv, bonus in [(2, 2, 100, 16, 32, False), (1, 3, 64, 32, 32, True),
+                                            (2, 1, 33, 8, 8, True), (1, 2, 16, 64, 64, False),
+                                            (1, 1, 7, 4, 4, True)]]
+    # enough blocks that the kernel takes its 32-column slice, with V = 40 ragged in it
+    extra += [(8, 64, 70, 64, 40, True, False, torch.float32, False)]
+    extra += [(2, 3, 5 * ss.CHUNK + 7, 64, 64, bonus, False, torch.bfloat16, True)
+              for bonus in (False, True)]
+    out = []
+    for shape in [m[1] for m in main] + extra:
+        b, h, l, dk, dv, bonus, shared, dtype, floor = shape
+
+        def make():
+            return scan_inputs(torch, gen, b, h, l, dk, dv, bonus=bonus, shared=shared,
+                               dtype=dtype, floor=floor, state=dtype == torch.float32)
+        q, k, v, decay, u, s0 = make()
+        got = ss.ssm_scan(q, k, v, decay, bonus=u, initial_state=s0)
+        torch.cuda.synchronize()
+        if not all(torch.isfinite(t).all() for t in got):
+            raise RuntimeError(f"ssm_scan: non-finite output at {shape}")
+        err, state_err, ok = scan_agree(got, ref.ssm_scan_ref(q, k, v, decay, u, s0))
+        rec = {"shape": [b, h, l, dk, dv], "bonus": bonus, "shared": shared,
+               "dtype": str(dtype).split(".")[-1], "floor": floor, "max_abs_err": err,
+               "state_max_abs_err": state_err}
+        if not ok:
+            raise RuntimeError(f"ssm_scan disagrees with its plain version: {rec}")
+        if floor:
+            # cut where no staging chunk ends and carry the state: the same bits
+            cut = ss.CHUNK + 5
+            first = ss.ssm_scan(*(t[:, :, :cut] for t in (q, k, v, decay)), bonus=u)
+            rest = ss.ssm_scan(*(t[:, :, cut:] for t in (q, k, v, decay)), bonus=u,
+                               initial_state=first[1])
+            if not (torch.equal(torch.cat([first[0], rest[0]], 2), got[0])
+                    and torch.equal(rest[1], got[1])):
+                raise RuntimeError(f"ssm_scan depends on where the sequence is cut: {rec}")
+        nbytes = sum(unique_bytes(t) for t in (q, k, v, decay) + got
+                     + tuple(t for t in (u, s0) if t is not None))
+        flops = 5.0 * b * h * l * dk * dv      # per (token, k, v): S update 3, read 2
+        rec["bound_ms"] = max(nbytes / PEAK_HBM, flops / PEAK_F32) * 1e3
+        rec["bound_by"] = "bytes" if nbytes / PEAK_HBM >= flops / PEAK_F32 else "operations"
+        if shape in timed:
+            sets = ring(lambda: make()[:5], nbytes)
+
+            def kernel(q, k, v, decay, u):
+                return ss.ssm_scan(q, k, v, decay, bonus=u)
+
+            def plain(q, k, v, decay, u):
+                return ref.ssm_scan_ref(q, k, v, decay, u)
+
+            rec["ms"] = device_ms(kernel, sets, 10)
+            rec["plain_ms"] = device_ms(plain, sets[:1], 1)
+            rec["library_ms"] = None       # no single PyTorch call computes the scan
+            rec["main_path"] = timed[shape]
+        print("K3 ssm_scan " + json.dumps(rec), flush=True)
+        out.append(rec)
+        del q, k, v, decay, got
+        torch.cuda.empty_cache()
+    records["ssm_scan"] = out
+
+
+def llm_cut_config(C, arch: str):
+    """Phase 7's cut at full width: rwkv6-3b's first 2 layers; zamba2-1.2b's
+    6-layer cycle (5 Mamba2 layers, then attention), so K1 and K3 both run."""
+    import dataclasses
+    return dataclasses.replace(C.get(arch), num_layers=2 if arch == "rwkv6-3b" else 6)
+
+
+def llm_cut_inputs(torch, cfg):
+    """A CUT_PROMPT-token prompt per row (no multiple of any chunk or tile),
+    and the tokens of CUT_DECODE decode steps."""
+    g = torch.Generator().manual_seed(7)
+    prompt = torch.randint(0, cfg.vocab_size, (CUT_BATCH, CUT_PROMPT), generator=g)
+    steps = torch.randint(0, cfg.vocab_size, (CUT_DECODE, CUT_BATCH, 1), generator=g)
+    return prompt, steps
+
+
+def llm_cut_readout(torch, model, prompt, steps) -> dict:
+    """One model's last-token logits, every layer's SSM state after the
+    prompt, and logits after the decode steps, as float32 on the CPU."""
+    dev = model.embed.device
+    logits, caches, offset = model.prefill(prompt.to(dev), CUT_PROMPT + CUT_DECODE)
+    states = torch.cat([c["ssm"].flatten() for c in caches if "ssm" in c])
+    for i, tok in enumerate(steps):
+        dec, caches = model.decode_step(tok.to(dev), caches, offset + i)
+    return {"logits": logits.float().cpu(), "ssm_state": states.float().cpu(),
+            "decode_logits": dec.float().cpu()}
+
+
+def rms_rel(got, want) -> float:
+    return ((got - want).pow(2).mean().sqrt() / want.pow(2).mean().sqrt()).item()
+
+
+def check_llm_cut(torch, C, tf, arch: str) -> dict:
+    """The cut on the card (bf16, kernels) against the same weights on the
+    CPU (float32, plain versions)."""
+    import dataclasses
+    cfg = llm_cut_config(C, arch)
+    gpu = tf.build(cfg, "cuda", seed=11)
+    cpu = tf.Transformer(dataclasses.replace(cfg, dtype=torch.float32), "cpu").eval()
+    with torch.no_grad():
+        for pc, pg in zip(cpu.parameters(), gpu.parameters()):
+            pc.copy_(pg.float().cpu())
+    prompt, steps = llm_cut_inputs(torch, cfg)
+    want = llm_cut_readout(torch, cpu, prompt, steps)
+    got = llm_cut_readout(torch, gpu, prompt, steps)
+    out = {k: rms_rel(got[k], want[k]) for k in want}
+    for k, tol in LLM_CUT_TOL.items():
+        if not math.isfinite(out[k]) or out[k] > tol:
+            raise RuntimeError(f"{arch} cut, card vs CPU: {k} = {out[k]:.3g} above {tol}")
+    del gpu, cpu
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_llm_phase(torch, C, tf, ops, serve_llm, arch: str) -> dict:
+    """Serve phase 8's requests on the full model; returns the launches."""
+    cfg = C.get(arch)
+    t0 = time.perf_counter()
+    model = tf.build(cfg, "cuda", seed=0)
+    # warm cuBLAS at a small size before the counted run
+    serve_llm.serve(cfg, serve_llm.requests_from_seed(cfg.vocab_size, 1, (64, 64), 2),
+                    device="cuda", model=model)
+    finite = []
+    lm_logits = model.lm_logits
+
+    def checked(x):
+        logits = lm_logits(x)
+        finite.append(torch.isfinite(logits).all())
+        return logits
+    model.lm_logits = checked
+    torch.cuda.synchronize()
+    print(f"[8] {arch} built on the card ({sum(p.numel() for p in model.parameters())} "
+          f"params) and warmed in {time.perf_counter() - t0:.1f} s", flush=True)
+    reqs = llm_requests(serve_llm, cfg)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    recs = serve_llm.serve(cfg, reqs, device="cuda", model=model)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    kinds = [m for m, _ in cfg.layer_kinds()]
+    groups = len(group_lengths(reqs))
+    want = {"flash_attention": kinds.count("attn") * groups, "adaln_rmsnorm": 0,
+            "ssm_scan": (kinds.count("mamba2") + kinds.count("rwkv6")) * groups}
+    if not all(bool(f) for f in finite) or len(finite) != groups * (1 + LLM_MAX_NEW):
+        raise RuntimeError(f"{arch}: non-finite logits while serving")
+    for r in recs:
+        toks = r["tokens"]
+        if len(toks) != LLM_MAX_NEW or not ((0 <= toks) & (toks < cfg.vocab_size)).all():
+            raise RuntimeError(f"{arch} request {r['rid']}: tokens {toks} not {LLM_MAX_NEW} "
+                               f"in [0, {cfg.vocab_size})")
+    for i in range(0, len(recs), LLM_BATCH):
+        r = recs[i]
+        print(f"[8] {arch} group of {r['group_size']}, prompts "
+              f"{[x['prompt_len'] for x in recs[i:i + LLM_BATCH]]}: prefill "
+              f"{r['prefill_ms']:.1f} ms, decode {r['decode_ms_per_token']:.2f} ms/token",
+              flush=True)
+    print(f"[8] {arch} served {len(recs)} requests in {wall:.2f} s, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB, launches {launches}",
+          flush=True)
+    if launches != want:
+        raise RuntimeError(f"{arch}: kernel launches {launches}, expected {want}")
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -310,11 +577,13 @@ def main() -> int:
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels import adaln_rmsnorm as ar
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssm_scan as ss
     import repro_torch.configs as C
     from repro_torch import device as device_mod
     from repro_torch.core.request import Request
-    from repro_torch.launch import quickstart
+    from repro_torch.launch import quickstart, serve_llm
     from repro_torch.models import pipeline as pl
+    from repro_torch.models import transformer as tf
 
     t_all = time.perf_counter()
     card = smi()
@@ -328,7 +597,10 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     records = {}
-    check_flash_attention(torch, ops, ref, fa, gen, records)
+    llm_groups = {arch: group_lengths(llm_requests(serve_llm, C.get(arch)))
+                  for arch in LLM_ARCHS}
+    check_flash_attention(torch, ops, ref, fa, gen, records,
+                          [(LLM_BATCH, l) for l in llm_groups["zamba2-1.2b"]])
     check_adaln_rmsnorm(torch, ref, ar, gen, records)
     print("[3] kernels agree with their plain versions", flush=True)
 
@@ -355,7 +627,7 @@ def main() -> int:
     wall = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
     want = {"flash_attention": 24 * 20 * len(RESOLUTIONS),
-            "adaln_rmsnorm": 49 * 20 * len(RESOLUTIONS)}
+            "adaln_rmsnorm": 49 * 20 * len(RESOLUTIONS), "ssm_scan": 0}
     for rec in recs:
         img = rec["output"]
         res = rec["resolution"]
@@ -374,20 +646,40 @@ def main() -> int:
           flush=True)
     if launches != want:
         raise RuntimeError(f"kernel launches {launches}, expected {want}")
+    by_path = {"sd3": launches}
+    del pipe
+    torch.cuda.empty_cache()
+
+    check_ssm_scan(torch, ref, ss, gen, records,
+                   [(arch, LLM_BATCH, l, C.get(arch).resolved_ssm_heads, arch == "rwkv6-3b",
+                     arch == "zamba2-1.2b") for arch in LLM_ARCHS for l in llm_groups[arch]])
+    print("[6] ssm_scan agrees with its plain version", flush=True)
+
+    for arch in LLM_ARCHS:
+        t0 = time.perf_counter()
+        cut = check_llm_cut(torch, C, tf, arch)
+        print(f"[7] {arch} cut, card vs CPU, rms err / rms: {json.dumps(cut)} "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    for arch in LLM_ARCHS:
+        by_path[arch] = serve_llm_phase(torch, C, tf, ops, serve_llm, arch)
 
     kernels = []
     for name, source, replaces in (
             ("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
              "src/repro/kernels/flash_attention.py:85"),
             ("adaln_rmsnorm", "src/repro_torch/csrc/adaln_rmsnorm.cu",
-             "src/repro/kernels/adaln_rmsnorm.py:33")):
+             "src/repro/kernels/adaln_rmsnorm.py:33"),
+            ("ssm_scan", "src/repro_torch/csrc/ssm_scan.cu",
+             "src/repro/kernels/ssm_scan.py:80")):
         rows = [r for r in records[name] if r.get("main_path")]
         lib = [r["library_ms"] for r in rows]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[name],
+            "launches": sum(counts[name] for counts in by_path.values()),
+            "launches_by_path": {path: counts[name] for path, counts in by_path.items()},
             "max_abs_err": max(r["max_abs_err"] for r in records[name]),
-            # one call at each shape the serve phase gives the kernel
+            # one call at each shape the serve phases give the kernel
             "shapes": [r["shape"] for r in rows],
             "ms": sum(r["ms"] for r in rows),
             "plain_ms": sum(r["plain_ms"] for r in rows),

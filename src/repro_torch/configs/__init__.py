@@ -1,27 +1,34 @@
-"""Config registry, pipeline half: the paper's diffusion pipelines.
+"""Config registry: the ported LLM architectures and diffusion pipelines.
 
-``get(pipeline_id)`` returns the full published config; ``get_smoke`` a
-reduced same-family variant that runs on a CPU in seconds. Counterpart of
-``repro/configs/__init__.py``; only ``sd3`` is ported so far.
+``get(id)`` returns the full published config; ``get_smoke`` a reduced
+same-family variant that runs on a CPU in seconds. Counterpart of
+``repro/configs/__init__.py``; ported so far: ``sd3``, ``zamba2-1.2b`` and
+``rwkv6-3b``.
 """
 from __future__ import annotations
 
 import importlib
 
+ARCH_IDS = ("zamba2-1.2b", "rwkv6-3b")
+
 PIPELINE_IDS = ("sd3",)
 
-_MODULES = {"sd3": "sd3"}
+_MODULES = {
+    "zamba2-1.2b": "zamba2_1p2b",
+    "rwkv6-3b": "rwkv6_3b",
+    "sd3": "sd3",
+}
 
 
-def _module(pipeline_id: str):
-    if pipeline_id not in _MODULES:
-        raise KeyError(f"unknown pipeline {pipeline_id!r}; ported: {sorted(_MODULES)}")
-    return importlib.import_module(f"repro_torch.configs.{_MODULES[pipeline_id]}")
+def _module(config_id: str):
+    if config_id not in _MODULES:
+        raise KeyError(f"unknown config {config_id!r}; ported: {sorted(_MODULES)}")
+    return importlib.import_module(f"repro_torch.configs.{_MODULES[config_id]}")
 
 
-def get(pipeline_id: str):
-    return _module(pipeline_id).CONFIG
+def get(config_id: str):
+    return _module(config_id).CONFIG
 
 
-def get_smoke(pipeline_id: str):
-    return _module(pipeline_id).SMOKE
+def get_smoke(config_id: str):
+    return _module(config_id).SMOKE

@@ -1,6 +1,7 @@
-"""Device choice for the port's entry points."""
+"""Device choice for the port's entry points, and a timer for work on it."""
 from __future__ import annotations
 
+import time
 from typing import Union
 
 import torch
@@ -23,3 +24,33 @@ def generator(device: torch.device, seed: int) -> torch.Generator:
     g = torch.Generator(device=device)
     g.manual_seed(seed)
     return g
+
+
+class StageTimer:
+    """Times the work enqueued inside a ``with`` block: with CUDA events on
+    the card, the host clock elsewhere. ``ms()`` waits for the end event."""
+
+    def __init__(self, dev: torch.device):
+        self.cuda = dev.type == "cuda"
+
+    def __enter__(self):
+        if self.cuda:
+            self.start = torch.cuda.Event(enable_timing=True)
+            self.end = torch.cuda.Event(enable_timing=True)
+            self.start.record()
+        else:
+            self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        if self.cuda:
+            self.end.record()
+        else:
+            self.host_ms = (time.perf_counter() - self.t0) * 1e3
+        return False
+
+    def ms(self) -> float:
+        if self.cuda:
+            self.end.synchronize()
+            return self.start.elapsed_time(self.end)
+        return self.host_ms

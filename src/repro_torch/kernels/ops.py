@@ -8,13 +8,16 @@ Counterpart of ``repro/kernels/ops.py``.
 """
 from __future__ import annotations
 
+from typing import Optional, Tuple
+
 import torch
 
 from repro_torch.kernels import adaln_rmsnorm as _ar
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ref
+from repro_torch.kernels import ssm_scan as _ss
 
-LAUNCHES = {"flash_attention": 0, "adaln_rmsnorm": 0}
+LAUNCHES = {"flash_attention": 0, "adaln_rmsnorm": 0, "ssm_scan": 0}
 
 
 def reset_launches() -> None:
@@ -54,3 +57,23 @@ def adaln_rmsnorm(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor, *,
     out = _ar.adaln_rmsnorm(x, scale, shift, eps=eps)
     LAUNCHES["adaln_rmsnorm"] += 1
     return out
+
+
+def linear_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, decay: torch.Tensor, *,
+                bonus: Optional[torch.Tensor] = None,
+                initial_state: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(B, H, L, K) inputs -> (out (B, H, L, V), final_state (B, H, K, V) f32)."""
+    if q.device.type == "cpu":
+        return ref.ssm_scan_ref(q, k, v, decay, bonus, initial_state)
+    out = _ss.ssm_scan(q, k, v, decay, bonus=bonus, initial_state=initial_state)
+    LAUNCHES["ssm_scan"] += 1
+    return out
+
+
+def linear_scan_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, decay: torch.Tensor,
+                       state: torch.Tensor, *, bonus: Optional[torch.Tensor] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Single-token recurrence; plain torch on every device (it is a matvec,
+    and the reference has no kernel for it)."""
+    return ref.linear_scan_decode_ref(q, k, v, decay, state, bonus)

@@ -1,0 +1,86 @@
+"""Kernel K3: the gated linear-attention scan on Hopper (``csrc/ssm_scan.cu``).
+
+Replaces the Pallas TPU kernel ``repro/kernels/ssm_scan.py``, which serves
+both Mamba2 (inclusive read) and RWKV6 (strict-past read plus the bonus
+term). The CUDA kernel runs the recurrence token by token with the state in
+registers, so it stays finite at the decay floor and does not depend on its
+chunk length; it reads q/k/v/decay through their strides, so Mamba2's
+head-shared B/C and per-head decay stay stride-0 views. This wrapper checks
+what it is given and launches; it never falls back.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.kernels import _build
+
+# tokens the kernel stages in shared memory per pass (CHUNK in csrc/ssm_scan.cu);
+# the result does not depend on it
+CHUNK = 32
+# per-step log-decay clamp of the TPU kernel (``repro/kernels/ssm_scan.py``),
+# kept by the kernel and by its plain version alike
+MAX_NEG_LOGW = 5.4
+MAX_DIM = 64                     # largest K and V the kernel takes
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_VP = ctypes.c_void_p
+_ARGTYPES = [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+             ctypes.c_int, ctypes.c_int, _VP, ctypes.c_int, _VP]
+
+
+def _check(q, k, v, decay, bonus, initial_state) -> None:
+    ts = [q, k, v, decay] + [t for t in (bonus, initial_state) if t is not None]
+    if not all(t.is_cuda and t.device == q.device for t in ts):
+        raise ValueError("ssm_scan kernel: tensors must be on one CUDA device")
+    if q.dtype not in DTYPES or not (q.dtype == k.dtype == v.dtype):
+        raise ValueError(f"ssm_scan kernel takes float32 or bfloat16 q/k/v alike, got "
+                         f"{q.dtype}/{k.dtype}/{v.dtype}")
+    if q.dim() != 4 or k.shape != q.shape or decay.shape != q.shape or v.dim() != 4 \
+            or v.shape[:3] != q.shape[:3]:
+        raise ValueError(f"ssm_scan kernel: bad shapes q {tuple(q.shape)} k {tuple(k.shape)} "
+                         f"v {tuple(v.shape)} decay {tuple(decay.shape)}")
+    b, h, _, dk = q.shape
+    dv = v.shape[3]
+    if not (1 <= dk <= MAX_DIM and 1 <= dv <= MAX_DIM):
+        raise ValueError(f"ssm_scan kernel takes K and V in 1..{MAX_DIM}, got {dk}, {dv}")
+    if decay.dtype != torch.float32:
+        raise ValueError(f"ssm_scan kernel takes a float32 decay, got {decay.dtype}")
+    if bonus is not None and (bonus.shape != (h, dk) or bonus.dtype != torch.float32
+                              or not bonus.is_contiguous()):
+        raise ValueError(f"ssm_scan kernel: bonus must be ({h}, {dk}) float32 contiguous, "
+                         f"got {tuple(bonus.shape)} {bonus.dtype}")
+    if initial_state is not None and (initial_state.shape != (b, h, dk, dv)
+                                      or initial_state.dtype != torch.float32
+                                      or not initial_state.is_contiguous()):
+        raise ValueError(f"ssm_scan kernel: initial_state must be ({b}, {h}, {dk}, {dv}) "
+                         f"float32 contiguous, got {tuple(initial_state.shape)} "
+                         f"{initial_state.dtype}")
+
+
+def ssm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, decay: torch.Tensor, *,
+             bonus: Optional[torch.Tensor] = None,
+             initial_state: Optional[torch.Tensor] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """q/k/decay: (B, H, L, K); v: (B, H, L, V); bonus: (H, K) f32 or None.
+
+    Returns (out (B, H, L, V) in v's dtype, final_state (B, H, K, V) f32).
+    Without a bonus the read is inclusive (Mamba2), with one it is the strict
+    past plus the bonus term (RWKV6)."""
+    _check(q, k, v, decay, bonus, initial_state)
+    b, h, l, dk = q.shape
+    dv = v.shape[3]
+    out = torch.empty((b, h, l, dv), dtype=v.dtype, device=v.device)
+    final = torch.empty((b, h, dk, dv), dtype=torch.float32, device=v.device)
+    strides = (ctypes.c_longlong * 16)(*q.stride(), *k.stride(), *v.stride(), *decay.stride())
+    fn = _build.function("repro_ssm_scan", _ARGTYPES)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), decay.data_ptr(),
+                 None if bonus is None else bonus.data_ptr(),
+                 None if initial_state is None else initial_state.data_ptr(),
+                 out.data_ptr(), final.data_ptr(), b, h, l, dk, dv, ctypes.addressof(strides),
+                 DTYPES[q.dtype], stream)
+    _build.check(err, "ssm_scan")
+    return out, final

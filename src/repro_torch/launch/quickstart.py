@@ -25,35 +25,6 @@ from repro_torch.core.request import STAGES, Request
 from repro_torch.models import pipeline as pl
 
 
-class _StageTimer:
-    """Times a stage with CUDA events on the card, the host clock elsewhere."""
-
-    def __init__(self, dev: torch.device):
-        self.cuda = dev.type == "cuda"
-
-    def __enter__(self):
-        if self.cuda:
-            self.start = torch.cuda.Event(enable_timing=True)
-            self.end = torch.cuda.Event(enable_timing=True)
-            self.start.record()
-        else:
-            self.t0 = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc):
-        if self.cuda:
-            self.end.record()
-        else:
-            self.host_ms = (time.perf_counter() - self.t0) * 1e3
-        return False
-
-    def ms(self) -> float:
-        if self.cuda:
-            self.end.synchronize()
-            return self.start.elapsed_time(self.end)
-        return self.host_ms
-
-
 def serve(cfg: pl.PipelineConfig, requests: Sequence[Request], device=None, seed: int = 0,
           pipe: Optional[pl.Pipeline] = None) -> List[Dict]:
     """Serve ``requests`` on one chip: ``device``, ``cuda`` by default.
@@ -99,7 +70,7 @@ def serve(cfg: pl.PipelineConfig, requests: Sequence[Request], device=None, seed
                      cfg.dit.latent_dim)
             noise = torch.randn(shape, dtype=torch.float32, device=dev,
                                 generator=_device.generator(dev, seed + 1 + index[req.rid]))
-            timers = {s: _StageTimer(dev) for s in STAGES}
+            timers = {s: _device.StageTimer(dev) for s in STAGES}
             with timers["E"]:
                 cond = pl.encode(pipe, toks)
             with timers["D"]:

@@ -31,7 +31,7 @@ SSM_KINDS = (MAMBA2, RWKV6)
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """The transformer config, with the fields the encoder slice reads.
+    """The transformer config, with the fields the ported slices read.
 
     ``layer_pattern`` is a cycle of ``"<mixer>:<ffn>"`` entries tiled to
     ``num_layers``.
@@ -47,16 +47,37 @@ class ModelConfig:
     vocab_size: int
     head_dim: int = 0                # 0 -> d_model // num_heads
     layer_pattern: Tuple[str, ...] = ("attn:dense",)
+
+    # attention details
+    window_size: int = 4096          # for attn_local
+    chunk_size: int = 8192           # for attn_chunked
+    logit_softcap: float = 0.0       # final-logit softcap (gemma2: 30)
     attn_softcap: float = 0.0        # attention-score softcap (gemma2: 50)
     rope_theta: float = 10000.0
+    qk_norm: bool = False
+
+    # SSM (mamba2 / rwkv6)
+    ssm_state_dim: int = 64
+    ssm_heads: int = 0               # 0 -> num_heads
+    ssm_expand: int = 2
+    ssm_conv: int = 4
+
+    modality: str = "text"           # text | vision | audio_codec
+
+    # numerics
     norm_eps: float = 1e-6
     dtype: Any = torch.bfloat16
     tie_embeddings: bool = False
+    embed_scale: bool = False        # multiply embeddings by sqrt(d_model) (gemma)
     source: str = ""
 
     @property
     def resolved_head_dim(self) -> int:
         return self.head_dim or self.d_model // self.num_heads
+
+    @property
+    def resolved_ssm_heads(self) -> int:
+        return self.ssm_heads or self.num_heads
 
     def layer_kinds(self) -> Tuple[Tuple[str, str], ...]:
         """Tile layer_pattern to num_layers -> ((mixer, ffn), ...)."""
@@ -66,6 +87,37 @@ class ModelConfig:
             mixer, _, ffn = entry.partition(":")
             out.append((mixer, ffn or FFN_DENSE))
         return tuple(out)
+
+    def scan_plan(self) -> Tuple[Tuple[Tuple[Tuple[str, str], ...], int], ...]:
+        """Blocks of (pattern_cycle, repeat), as the reference stacks its
+        parameters: a cycling pattern repeated at least twice is one block
+        (the whole cycle per repeat), then the remaining layers merge into
+        homogeneous runs. The layers execute block by block, repeat by
+        repeat, cycle position by cycle position."""
+        kinds = self.layer_kinds()
+        p = len(self.layer_pattern)
+        n = self.num_layers
+        blocks = []
+        if p > 1 and n // p >= 2:
+            g = n // p
+            blocks.append((tuple(kinds[:p]), g))
+            rest = kinds[g * p:]
+        else:
+            rest = kinds
+        runs = []
+        for k in rest:
+            if runs and runs[-1][0] == k:
+                runs[-1][1] += 1
+            else:
+                runs.append([k, 1])
+        for k, c in runs:
+            blocks.append(((k,), c))
+        return tuple(blocks)
+
+    def plan_kinds(self) -> Tuple[Tuple[str, str], ...]:
+        """Every layer's kind in execution (scan-plan) order."""
+        return tuple(kind for cycle, repeat in self.scan_plan()
+                     for _ in range(repeat) for kind in cycle)
 
 
 # ---------------------------------------------------------------------------
@@ -108,6 +160,20 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.
     return (x * (1.0 + weight.float())).to(dtype)
 
 
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-6) -> torch.Tensor:
+    dtype = x.dtype
+    x = x.float()
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x - mu), dim=-1, keepdim=True)
+    x = (x - mu) * torch.rsqrt(var + eps)
+    return (x * weight.float() + bias.float()).to(dtype)
+
+
+def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
+    return cap * torch.tanh(x / cap) if cap > 0 else x
+
+
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
     return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32, device=device)
                             / head_dim))
@@ -146,6 +212,14 @@ def make_attention_mask(q_pos: torch.Tensor, kv_pos: torch.Tensor, kind: str,
     raise ValueError(f"unknown attention kind {kind!r}")
 
 
+def repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
+    """(B, L, Hkv, Dh) -> (B, L, Hkv*n_rep, Dh)."""
+    if n_rep == 1:
+        return x
+    b, l, h, d = x.shape
+    return x[:, :, :, None, :].expand(b, l, h, n_rep, d).reshape(b, l, h * n_rep, d)
+
+
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: Optional[torch.Tensor],
               attn_softcap_val: float = 0.0) -> torch.Tensor:
     """q: (B, Lq, H, Dh); k/v: (B, Lkv, H, Dh); mask: (Lq, Lkv) or None.
@@ -156,8 +230,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: Optional[
     if attn_softcap_val > 0:
         scores = attn_softcap_val * torch.tanh(scores / attn_softcap_val)
     if mask is not None:
-        scores = torch.where(mask[None, None], scores,
-                             torch.tensor(-1e30, dtype=scores.dtype, device=scores.device))
+        scores = scores.masked_fill(~mask[None, None], -1e30)
     probs = torch.softmax(scores, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype), v)
 

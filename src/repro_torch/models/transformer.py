@@ -1,32 +1,87 @@
-"""The transformer's encoder half: the bidirectional text encoder of stage E.
+"""The transformer: the text encoder of stage E and the LLM decoder.
 
-Counterpart of ``repro/models/transformer.py`` for the ``"train"``-mode pass
-over ``attn_bidir:dense`` layers (the T5-style encoder of the diffusion
-pipelines). One ``nn.Module`` per layer, where the reference stacks the
-layers under ``params["blocks"][0][0]`` with a leading repeat dimension.
-The causal mixers, caches, SSM and MoE layers are not ported yet.
+Counterpart of ``repro/models/transformer.py``. One ``nn.Module`` per layer,
+in the order the reference executes them (``ModelConfig.plan_kinds``: scan
+block by block, repeat by repeat, cycle position by cycle position), where
+the reference stacks each cycle position's layers under
+``params["blocks"][bi][pi]`` with a leading repeat dimension. Three modes
+share the layer code, as in the reference:
+
+  * ``run_layers``  — the encoder pass, no cache (``"train"`` mode; the
+                      encoder's layers only, as training is not ported);
+  * ``prefill``     — the full prompt, filling one cache entry per layer;
+  * ``decode_step`` — ONE token per sequence against the caches.
+
+Ported layer kinds: ``attn_bidir:dense`` (encoder), ``attn:dense`` (causal,
+with a ring KV cache), ``mamba2:none`` and ``rwkv6:none``. The sliding-window
+and chunked masks, MoE FFNs and the vision/audio front ends are not ported.
+The port runs eagerly and updates the KV ring cache in place at decode.
 """
 from __future__ import annotations
+
+import math
+from typing import List, Tuple
 
 import torch
 from torch import nn
 
-from repro_torch.models import common
-from repro_torch.models.common import ATTN_BIDIR, FFN_DENSE, ModelConfig, param
+from repro_torch import device as _device
+from repro_torch.kernels import ops
+from repro_torch.models import common, ssm
+from repro_torch.models.common import (ATTN, ATTN_BIDIR, ATTN_CHUNKED, ATTN_LOCAL, FFN_DENSE,
+                                       MAMBA2, RWKV6, ModelConfig, param)
+
+FFN_NONE = "none"
+PORTED_KINDS = ((ATTN_BIDIR, FFN_DENSE), (ATTN, FFN_DENSE), (MAMBA2, FFN_NONE),
+                (RWKV6, FFN_NONE))
 
 
-class EncoderLayer(nn.Module):
-    """One ``attn_bidir:dense`` layer: pre-norm attention, then pre-norm SwiGLU."""
+def cache_capacity(cfg: ModelConfig, mixer: str, max_len: int) -> int:
+    if mixer == ATTN:
+        return max_len
+    if mixer == ATTN_LOCAL:
+        return min(cfg.window_size, max_len)
+    if mixer == ATTN_CHUNKED:
+        return min(cfg.chunk_size, max_len)
+    return 0
 
-    def __init__(self, cfg: ModelConfig, device=None):
+
+def _fill_cache_from_prefill(k: torch.Tensor, v: torch.Tensor, positions: torch.Tensor,
+                             cap: int) -> dict:
+    """Write the last ``cap`` tokens of prefill K/V into a fresh ring cache."""
+    b, l = k.shape[0], k.shape[1]
+    take = min(cap, l)
+    ks, vs = k[:, l - take:], v[:, l - take:]
+    ps = positions[:, l - take:].expand(b, take)
+    if take < cap:
+        pad = cap - take
+        return {"k": torch.cat([ks, ks.new_zeros((b, pad) + ks.shape[2:])], 1),
+                "v": torch.cat([vs, vs.new_zeros((b, pad) + vs.shape[2:])], 1),
+                "pos": torch.cat([ps, ps.new_full((b, pad), -1)], 1)}
+    # ring layout: token at absolute position p sits in slot p % cap
+    slots = (ps[0] % cap).long()
+    inv = torch.zeros((cap,), dtype=torch.long, device=k.device)
+    inv[slots] = torch.arange(cap, device=k.device)
+    return {"k": ks[:, inv], "v": vs[:, inv], "pos": ps[:, inv]}
+
+
+class AttentionLayer(nn.Module):
+    """Pre-norm attention, then a pre-norm SwiGLU FFN: ``attn_bidir:dense``
+    (the encoder's, plain attention) or ``attn:dense`` (causal; prefill
+    through ``ops.flash_attention``, decode against the ring cache)."""
+
+    def __init__(self, cfg: ModelConfig, mixer: str, device=None):
         super().__init__()
         d, dh, dt = cfg.d_model, cfg.resolved_head_dim, cfg.dtype
-        self.cfg = cfg
+        self.cfg, self.mixer = cfg, mixer
         self.ln1 = param((d,), torch.float32, device)
         self.wq = param((d, cfg.num_heads * dh), dt, device)
         self.wk = param((d, cfg.num_kv_heads * dh), dt, device)
         self.wv = param((d, cfg.num_kv_heads * dh), dt, device)
         self.wo = param((cfg.num_heads * dh, d), dt, device)
+        if cfg.qk_norm:
+            self.q_norm = param((dh,), torch.float32, device)
+            self.k_norm = param((dh,), torch.float32, device)
         self.ln2 = param((d,), torch.float32, device)
         self.w_gate = param((d, cfg.d_ff), dt, device)
         self.w_up = param((d, cfg.d_ff), dt, device)
@@ -35,12 +90,23 @@ class EncoderLayer(nn.Module):
     @torch.no_grad()
     def init_(self, gen: torch.Generator) -> None:
         scale_o = 1.0 / max(1, self.cfg.num_layers) ** 0.5
-        self.ln1.zero_()
-        self.ln2.zero_()
+        for w in (self.ln1, self.ln2) + ((self.q_norm, self.k_norm) if self.cfg.qk_norm else ()):
+            w.zero_()
         for w in (self.wq, self.wk, self.wv, self.w_gate, self.w_up):
             common.dense_init_(w, gen)
         common.dense_init_(self.wo, gen, scale=scale_o)
         common.dense_init_(self.w_down, gen, scale=scale_o)
+
+    def init_cache(self, batch: int, max_len: int, device=None) -> dict:
+        cfg = self.cfg
+        if self.mixer == ATTN_BIDIR:
+            raise ValueError("encoder layers have no decode cache")
+        cap = cache_capacity(cfg, self.mixer, max_len)
+        shape = (batch, cap, cfg.num_kv_heads, cfg.resolved_head_dim)
+        return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
+                "v": torch.zeros(shape, dtype=cfg.dtype, device=device),
+                # absolute position held in each slot; -1 = empty
+                "pos": torch.full((batch, cap), -1, dtype=torch.int32, device=device)}
 
     def _project_qkv(self, x: torch.Tensor, positions: torch.Tensor):
         cfg = self.cfg
@@ -49,44 +115,151 @@ class EncoderLayer(nn.Module):
         q = (x @ self.wq).reshape(b, l, cfg.num_heads, dh)
         k = (x @ self.wk).reshape(b, l, cfg.num_kv_heads, dh)
         v = (x @ self.wv).reshape(b, l, cfg.num_kv_heads, dh)
+        if cfg.qk_norm:
+            q = common.rms_norm(q, self.q_norm, cfg.norm_eps)
+            k = common.rms_norm(k, self.k_norm, cfg.norm_eps)
         # as in the reference, RoPE applies to the bidirectional encoder too
         q = common.apply_rope(q, positions, cfg.rope_theta)
         k = common.apply_rope(k, positions, cfg.rope_theta)
         return q, k, v
 
-    def forward(self, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    def _ffn(self, x: torch.Tensor) -> torch.Tensor:
+        h = common.rms_norm(x, self.ln2, self.cfg.norm_eps)
+        return x + common.swiglu(h, self.w_gate, self.w_up, self.w_down)
+
+    def _attend(self, x: torch.Tensor, positions: torch.Tensor):
+        """Attention over the in-flight sequence only -> (x + out, (k, v))."""
         cfg = self.cfg
         b, l, _ = x.shape
         h = common.rms_norm(x, self.ln1, cfg.norm_eps)
         q, k, v = self._project_qkv(h, positions)
         n_rep = cfg.num_heads // cfg.num_kv_heads
-        k = k.repeat_interleave(n_rep, dim=2)
-        v = v.repeat_interleave(n_rep, dim=2)
-        pos = positions[0]
-        mask = common.make_attention_mask(pos, pos, ATTN_BIDIR)
-        out = common.attention(q, k, v, mask, cfg.attn_softcap)
-        x = x + out.reshape(b, l, cfg.num_heads * cfg.resolved_head_dim) @ self.wo
-        h = common.rms_norm(x, self.ln2, cfg.norm_eps)
-        return x + common.swiglu(h, self.w_gate, self.w_up, self.w_down)
+        kr, vr = common.repeat_kv(k, n_rep), common.repeat_kv(v, n_rep)
+        if self.mixer == ATTN_BIDIR:
+            pos = positions[0]
+            mask = common.make_attention_mask(pos, pos, ATTN_BIDIR)
+            out = common.attention(q, kr, vr, mask, cfg.attn_softcap)
+        else:
+            out = ops.flash_attention(q, kr, vr, causal=True, softcap=cfg.attn_softcap)
+        out = out.reshape(b, l, cfg.num_heads * cfg.resolved_head_dim)
+        return x + out @ self.wo, (k, v)
+
+    def forward(self, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+        return self._ffn(self._attend(x, positions)[0])
+
+    def prefill(self, x: torch.Tensor, positions: torch.Tensor, cache: dict):
+        x, (k, v) = self._attend(x, positions)
+        return self._ffn(x), _fill_cache_from_prefill(k, v, positions, cache["k"].shape[1])
+
+    def decode(self, x: torch.Tensor, offset: int, cache: dict):
+        """One token against the ring cache; ``offset`` = tokens already
+        processed (the new token's position). Writes the cache in place."""
+        cfg = self.cfg
+        b, l, _ = x.shape  # l == 1
+        h = common.rms_norm(x, self.ln1, cfg.norm_eps)
+        positions = torch.full((b, l), offset, dtype=torch.int32, device=x.device)
+        q, k_new, v_new = self._project_qkv(h, positions)
+        k, v, pos = cache["k"], cache["v"], cache["pos"]
+        slot = offset % k.shape[1]
+        k[:, slot] = k_new[:, 0].to(k.dtype)
+        v[:, slot] = v_new[:, 0].to(v.dtype)
+        pos[:, slot] = offset
+        valid = (pos >= 0) & (pos <= offset)
+        n_rep = cfg.num_heads // cfg.num_kv_heads
+        kr, vr = common.repeat_kv(k, n_rep), common.repeat_kv(v, n_rep)
+        scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), kr.float()) / math.sqrt(q.shape[-1])
+        scores = common.softcap(scores, cfg.attn_softcap)
+        scores = scores.masked_fill(~valid[:, None, None, :], -1e30)
+        probs = torch.softmax(scores, dim=-1)
+        out = torch.einsum("bhqk,bkhd->bqhd", probs.to(vr.dtype), vr)
+        out = out.reshape(b, l, cfg.num_heads * cfg.resolved_head_dim)
+        return self._ffn(x + out @ self.wo), {"k": k, "v": v, "pos": pos}
 
 
-class Transformer(nn.Module):
-    """Token embedding, the encoder layers, the final norm and the LM head.
-
-    ``encode`` never reads ``lm_head``; it is kept because the profiler
-    counts it, as the reference's does."""
+class Mamba2Layer(nn.Module):
+    """``mamba2:none``: pre-norm Mamba2, no FFN."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
-        for kind in cfg.layer_kinds():
-            if kind != (ATTN_BIDIR, FFN_DENSE):
-                raise NotImplementedError(f"layer kind {kind} is not ported yet")
+        self.cfg = cfg
+        self.ln1 = param((cfg.d_model,), torch.float32, device)
+        self.mamba = ssm.Mamba2(cfg, device)
+
+    @torch.no_grad()
+    def init_(self, gen: torch.Generator) -> None:
+        self.ln1.zero_()
+        self.mamba.init_(gen)
+
+    def init_cache(self, batch: int, max_len: int, device=None) -> dict:
+        return self.mamba.init_state(batch, device)
+
+    def prefill(self, x: torch.Tensor, positions: torch.Tensor, cache: dict):
+        out, new = self.mamba(common.rms_norm(x, self.ln1, self.cfg.norm_eps), cache)
+        return x + out, new
+
+    def decode(self, x: torch.Tensor, offset: int, cache: dict):
+        out, new = self.mamba.decode(common.rms_norm(x, self.ln1, self.cfg.norm_eps), cache)
+        return x + out, new
+
+
+class RWKV6Layer(nn.Module):
+    """``rwkv6:none``: pre-norm time-mix, then pre-norm channel-mix (its own FFN)."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.ln1 = param((cfg.d_model,), torch.float32, device)
+        self.ln2 = param((cfg.d_model,), torch.float32, device)
+        self.rwkv = ssm.RWKV6(cfg, device)
+
+    @torch.no_grad()
+    def init_(self, gen: torch.Generator) -> None:
+        self.ln1.zero_()
+        self.ln2.zero_()
+        self.rwkv.init_(gen)
+
+    def init_cache(self, batch: int, max_len: int, device=None) -> dict:
+        return self.rwkv.init_state(batch, device)
+
+    def _run(self, x: torch.Tensor, state: dict, decode: bool):
+        eps = self.cfg.norm_eps
+        out, s_new, shift_tm = self.rwkv.timemix(common.rms_norm(x, self.ln1, eps), state, decode)
+        x = x + out
+        out2, shift_cm = self.rwkv.channelmix(common.rms_norm(x, self.ln2, eps), state)
+        dt = self.cfg.dtype
+        return x + out2, {"ssm": s_new, "shift_tm": shift_tm.to(dt), "shift_cm": shift_cm.to(dt)}
+
+    def prefill(self, x: torch.Tensor, positions: torch.Tensor, cache: dict):
+        return self._run(x, cache, decode=False)
+
+    def decode(self, x: torch.Tensor, offset: int, cache: dict):
+        return self._run(x, cache, decode=True)
+
+
+def _make_layer(cfg: ModelConfig, kind: Tuple[str, str], device) -> nn.Module:
+    if kind not in PORTED_KINDS:
+        raise NotImplementedError(f"layer kind {kind} is not ported yet")
+    mixer = kind[0]
+    if mixer == MAMBA2:
+        return Mamba2Layer(cfg, device)
+    if mixer == RWKV6:
+        return RWKV6Layer(cfg, device)
+    return AttentionLayer(cfg, mixer, device)
+
+
+class Transformer(nn.Module):
+    """Token embedding, the layers in execution order, the final norm and
+    the LM head. The encoder never reads ``lm_head``; it is kept because the
+    profiler counts it, as the reference's does."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
         self.cfg = cfg
         self.embed = param((cfg.vocab_size, cfg.d_model), cfg.dtype, device)
         self.final_norm = param((cfg.d_model,), torch.float32, device)
         if not cfg.tie_embeddings:
             self.lm_head = param((cfg.d_model, cfg.vocab_size), cfg.dtype, device)
-        self.layers = nn.ModuleList(EncoderLayer(cfg, device) for _ in range(cfg.num_layers))
+        self.layers = nn.ModuleList(_make_layer(cfg, kind, device) for kind in cfg.plan_kinds())
 
     @torch.no_grad()
     def init_(self, gen: torch.Generator) -> None:
@@ -98,8 +271,13 @@ class Transformer(nn.Module):
             layer.init_(gen)
 
     def embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
-        """tokens: (B, L) integer -> (B, L, D)."""
-        return self.embed[tokens]
+        """tokens: (B, L) integer -> (B, L, D). Text only."""
+        if self.cfg.modality != "text":
+            raise NotImplementedError(f"the {self.cfg.modality} front end is not ported yet")
+        x = self.embed[tokens]
+        if self.cfg.embed_scale:
+            x = x * (self.cfg.d_model ** 0.5)
+        return x
 
     def run_layers(self, x: torch.Tensor) -> torch.Tensor:
         """The ``"train"``-mode pass over every layer, positions 0..L-1."""
@@ -111,3 +289,46 @@ class Transformer(nn.Module):
 
     def apply_final_norm(self, x: torch.Tensor) -> torch.Tensor:
         return common.rms_norm(x, self.final_norm, self.cfg.norm_eps)
+
+    def lm_logits(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.apply_final_norm(x)
+        logits = x @ (self.embed.T if self.cfg.tie_embeddings else self.lm_head)
+        return common.softcap(logits.float(), self.cfg.logit_softcap)
+
+    def init_cache(self, batch: int, max_len: int) -> List[dict]:
+        """One cache entry per layer, in execution order."""
+        dev = self.embed.device
+        return [layer.init_cache(batch, max_len, dev) for layer in self.layers]
+
+    @torch.no_grad()
+    def prefill(self, tokens: torch.Tensor, max_len: int) -> Tuple[torch.Tensor, List[dict], int]:
+        """Returns (last-token logits (B, 1, V) f32, caches, offset). Caches
+        are sized for ``max_len``."""
+        x = self.embed_tokens(tokens)
+        b, l, _ = x.shape
+        positions = torch.arange(l, dtype=torch.int32, device=x.device)[None].expand(b, l)
+        caches = []
+        for layer, cache in zip(self.layers, self.init_cache(b, max_len)):
+            x, cache = layer.prefill(x, positions, cache)
+            caches.append(cache)
+        return self.lm_logits(x[:, -1:, :]), caches, l
+
+    @torch.no_grad()
+    def decode_step(self, tokens: torch.Tensor, caches: List[dict], offset: int
+                    ) -> Tuple[torch.Tensor, List[dict]]:
+        """ONE new token per sequence, tokens (B, 1), against the caches."""
+        x = self.embed_tokens(tokens)
+        new = []
+        for layer, cache in zip(self.layers, caches):
+            x, cache = layer.decode(x, offset, cache)
+            new.append(cache)
+        return self.lm_logits(x), new
+
+
+def build(cfg: ModelConfig, device=None, seed: int = 0) -> Transformer:
+    """The model on ``device`` (``cuda`` by default) with weights drawn from
+    ``seed`` on that device."""
+    dev = _device.resolve(device)
+    model = Transformer(cfg, dev)
+    model.init_(_device.generator(dev, seed))
+    return model.eval()

@@ -1,0 +1,1 @@
+"""LLM serving: prefill and greedy decode against the caches."""

@@ -12,6 +12,7 @@ import torch
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import adaln_rmsnorm as tar
 from repro_torch.kernels import flash_attention as tfa
+from repro_torch.kernels import ssm_scan as tss
 
 # bf16 outputs: the kernel and the plain version round at the same places,
 # after f32 sums taken in another order -> one or two bf16 ulps
@@ -21,12 +22,13 @@ BF16_TOL = 2e-2
 def _assert_attention_close(got, want):
     """Attention outputs of N(0, 1) inputs are small (rms ~ sqrt(e / L)), so
     the limits scale with their rms, as in chip_smoke.py: elementwise
-    3e-2 * rms + 2**-6 * |want| (two bf16 ulps), and rms(err) <= 5e-3 * rms."""
+    3e-2 * rms(query row) + 2**-6 * |want| (two bf16 ulps), and
+    rms(err) <= 5e-3 * rms."""
     d = (got.float() - want.float()).abs()
     w = want.float()
-    rms = w.pow(2).mean().sqrt()
-    assert (d <= 3e-2 * rms + 2.0 ** -6 * w.abs()).all(), d.max().item()
-    assert d.pow(2).mean().sqrt() <= 5e-3 * rms
+    row = w.pow(2).mean(dim=(2, 3), keepdim=True).sqrt()
+    assert (d <= 3e-2 * row + 2.0 ** -6 * w.abs()).all(), d.max().item()
+    assert d.pow(2).mean().sqrt() <= 5e-3 * w.pow(2).mean().sqrt()
 
 
 def _qkv(seed, b, lq, lkv, h, d):
@@ -72,7 +74,9 @@ def test_ops_count_kernel_launches_on_card(cuda):
     ops.flash_attention(q, k, v, causal=False)
     x = q.reshape(1, 77, 128)
     ops.adaln_rmsnorm(x, x[:, 0], x[:, 1])
-    assert ops.LAUNCHES == {"flash_attention": 1, "adaln_rmsnorm": 1}
+    q4 = q.permute(0, 2, 1, 3)
+    ops.linear_scan(q4, q4, q4, torch.rand(q4.shape, device=cuda))
+    assert ops.LAUNCHES == {"flash_attention": 1, "adaln_rmsnorm": 1, "ssm_scan": 1}
 
 
 @pytest.mark.gpu
@@ -83,3 +87,64 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
     q, k, v = (t.to(cuda, torch.bfloat16) for t in _qkv(9, 1, 8, 8, 2, 32))
     with pytest.raises(ValueError, match="head dim"):
         tfa.flash_attention(q, k, v)
+    q, k, v = (t.to(cuda).permute(0, 2, 1, 3) for t in _qkv(9, 1, 8, 8, 2, 64))
+    with pytest.raises(ValueError, match="float32 decay"):
+        tss.ssm_scan(q, k, v, q.to(torch.bfloat16).float().half())
+    with pytest.raises(ValueError, match="K and V"):
+        tss.ssm_scan(*(torch.cat([t, t], -1) for t in (q, k, v, q)))
+
+
+def _assert_scan_close(got, want):
+    """K3 against its plain version: both keep the state and every sum in
+    f32 and differ only in the order of the sums over K, so the state and
+    f32 outputs agree to 1e-5 of their rms; bf16 outputs are the same f32
+    values rounded, hence one bf16 ulp (2**-7 relative) apart at most."""
+    for g, w in zip(got, want):
+        w = w.float()
+        d = (g.float() - w).abs()
+        rms = w.pow(2).mean().sqrt()
+        rel = 2.0 ** -7 if g.dtype == torch.bfloat16 else 1e-5
+        assert (d <= 1e-5 * rms + rel * w.abs()).all(), d.max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,l,dk,dv,bonus,dtype,shared", [
+    (2, 40, 300, 64, 64, True, torch.bfloat16, False),     # rwkv6's heads
+    (2, 64, 300, 64, 64, False, torch.bfloat16, True),     # mamba2's, B/C and decay shared
+    (2, 2, 100, 16, 32, False, torch.float32, False),
+    (1, 1, 7, 4, 4, True, torch.float32, False),
+    (8, 64, 70, 64, 40, True, torch.float32, False),       # the 32-column slice, V ragged
+])
+def test_ssm_scan_kernel_matches_plain_on_card(cuda, b, h, l, dk, dv, bonus, dtype, shared):
+    g = torch.Generator(device=cuda).manual_seed(b * h + l)
+    rn = lambda *s: torch.randn(s, generator=g, device=cuda)
+    hq = 1 if shared else h
+    q, k = (rn(b, hq, l, dk).to(dtype).expand(b, h, l, dk) for _ in range(2))
+    decay = torch.exp(-torch.exp(rn(b, hq, l, 1 if shared else dk))).expand(b, h, l, dk)
+    v = rn(b, h, l, dv).to(dtype)
+    u = rn(h, dk) if bonus else None
+    s0 = rn(b, h, dk, dv)
+    got = tss.ssm_scan(q, k, v, decay, bonus=u, initial_state=s0)
+    _assert_scan_close(got, ref.ssm_scan_ref(q, k, v, decay, u, s0))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bonus", [False, True])
+def test_ssm_scan_kernel_at_the_decay_floor_does_not_depend_on_chunks(cuda, bonus):
+    """Every decay at exp(-5.4): finite, on the plain version, and the same
+    when the sequence is cut at a point that is not a chunk boundary and the
+    state carried over."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    b, h, l, d = 2, 3, 5 * tss.CHUNK + 7, 64
+    q, k, v = (torch.randn((b, h, l, d), generator=g, device=cuda) for _ in range(3))
+    decay = torch.full((b, h, l, d), float(np.exp(-tss.MAX_NEG_LOGW)), device=cuda)
+    u = torch.randn((h, d), generator=g, device=cuda) if bonus else None
+    o, s = tss.ssm_scan(q, k, v, decay, bonus=u)
+    assert torch.isfinite(o).all() and torch.isfinite(s).all()
+    _assert_scan_close((o, s), ref.ssm_scan_ref(q, k, v, decay, u))
+    cut = tss.CHUNK + 5
+    o1, s1 = tss.ssm_scan(q[:, :, :cut], k[:, :, :cut], v[:, :, :cut], decay[:, :, :cut],
+                          bonus=u)
+    o2, s2 = tss.ssm_scan(q[:, :, cut:], k[:, :, cut:], v[:, :, cut:], decay[:, :, cut:],
+                          bonus=u, initial_state=s1)
+    _assert_scan_close((torch.cat([o1, o2], 2), s2), (o, s))

@@ -12,9 +12,11 @@ import torch
 
 import repro_torch
 import repro_torch.configs as TC
+from repro_torch import convert
 from repro_torch.core.request import Request
-from repro_torch.launch import quickstart
+from repro_torch.launch import quickstart, serve_llm
 from repro_torch.models import pipeline as tpl
+from repro_torch.models import transformer as ttf
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
@@ -39,7 +41,7 @@ def test_port_imports_no_jax_and_no_reference_package():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, env=env,
                          cwd=str(ROOT), timeout=120)
     assert out.returncode == 0, out.stderr
-    assert len(mods) >= 17
+    assert len(mods) >= 32
 
 
 def test_no_source_names_jax_or_the_reference_package():
@@ -64,3 +66,13 @@ def test_default_device_is_cuda_and_raises_without_a_card():
         tpl.build(cfg)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         quickstart.serve(cfg, [Request(cfg.name, 64)])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        convert.from_jax(cfg, {})
+    lm = TC.get_smoke("rwkv6-3b")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        convert.from_jax_lm(lm, {})
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ttf.build(lm)
+    reqs = serve_llm.requests_from_seed(lm.vocab_size, 1, (4, 8), 2)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve_llm.serve(lm, reqs)

@@ -18,6 +18,7 @@ from repro.kernels import ops as jops
 from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels import adaln_rmsnorm as tar
 from repro_torch.kernels import flash_attention as tfa
+from repro_torch.kernels import ssm_scan as tss
 
 # f32: both sides compute the same f32 arithmetic in another order
 F32_TOL = 3e-5
@@ -106,7 +107,10 @@ def test_cpu_ops_take_the_plain_versions_and_count_nothing():
     x = torch.randn(1, 8, 16)
     s, t = torch.randn(1, 16), torch.randn(1, 16)
     assert torch.equal(ops.adaln_rmsnorm(x, s, t), ref.adaln_rmsnorm_ref(x, s, t))
-    assert ops.LAUNCHES == {"flash_attention": 0, "adaln_rmsnorm": 0}
+    q4, w = q.permute(0, 2, 1, 3), torch.rand(1, 2, 8, 64)
+    for got, want in zip(ops.linear_scan(q4, q4, q4, w), ref.ssm_scan_ref(q4, q4, q4, w)):
+        assert torch.equal(got, want)
+    assert ops.LAUNCHES == {"flash_attention": 0, "adaln_rmsnorm": 0, "ssm_scan": 0}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -116,6 +120,9 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     x = torch.randn(1, 8, 16)
     with pytest.raises(ValueError, match="CUDA"):
         tar.adaln_rmsnorm(x, x[:, 0], x[:, 1])
+    q4 = q.permute(0, 2, 1, 3)
+    with pytest.raises(ValueError, match="CUDA"):
+        tss.ssm_scan(q4, q4, q4, q4.float())
 
 
 def test_build_raises_with_nvcc_stderr(tmp_path, monkeypatch):
