@@ -5,13 +5,17 @@
 
 Phases:
   1. require a CUDA card; print its name and power limit; turn TF32 off;
-  2. build the Hopper kernels from ``src/repro_torch/csrc``;
+  2. build the Hopper kernels from ``src/repro_torch/csrc``, and print K1's
+     registers, spills and shared memory per instantiation (from ptxas);
   3. hold each kernel against its plain PyTorch version on the same CUDA
      tensors at every shape the serve phase gives it (and the variant
-     shapes of the reference's kernel tests), with kernel, plain, library
-     and bound times per shape (device times from CUDA-graph replays); at
-     the serving shapes K1's check must also reject the output of a kernel
-     that lets the padded keys of its ragged last tile in;
+     shapes of the reference's kernel tests, and for K1 the lengths on and
+     beside its 128-row and 128-key tile edges, causal queries at the end of
+     a longer kv, a window across tiles and causal D=128), with kernel,
+     plain, library and bound times per shape (device times from CUDA-graph
+     replays), each time's share of its bound and its ratio to the library
+     call; at the serving shapes K1's check must also reject the output of
+     a kernel that lets the padded keys of its ragged last tile in;
   4. check that a two-layer cut of sd3 at full width agrees on the card
      (bf16, through the kernels) with the same weights on the CPU (float32,
      plain versions): the encoder's output and one DiT forward's output;
@@ -39,9 +43,11 @@ exits non-zero and prints no such line.
 """
 from __future__ import annotations
 
+import ctypes
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -71,6 +77,7 @@ K1_ATOL = 3e-2
 K1_RTOL = 2.0 ** -6
 K1_RMS = 5e-3
 K1_FAULT_SHOWN = (1101, 4173)  # at 9293 that fault is below bf16 resolution
+K1_BN = 128                    # K1's keys per KV tile: the padding of its ragged last tile
 # K2: |kernel - plain| <= tol + tol * |plain|, elementwise (the reference's
 # kernel tests use the same form): bf16 outputs differ by an ulp or two of
 # rounding, f32 ones by the order of the sums
@@ -165,6 +172,40 @@ def device_ms(fn, arg_sets, reps: int) -> float:
     return e0.elapsed_time(e1) / reps
 
 
+def shares(rec: dict) -> None:
+    """A timed record's share of its bound and its ratio to the library call."""
+    rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+    rec["vs_library"] = rec["ms"] / rec["library_ms"] if rec["library_ms"] else None
+
+
+def k1_build_report(_build) -> str:
+    """K1's registers, spills and shared memory per instantiation (head dim D,
+    NC consumer warpgroups): the first two from ``ptxas -v`` in the build's
+    nvcc.log, the dynamic shared memory each launch asks for from the
+    kernel's own layout."""
+    lines = open(_build.build_dir() / "nvcc.log").read().splitlines()
+    smem = _build.function("repro_flash_attention_smem_bytes", [ctypes.c_int, ctypes.c_int])
+    out = []
+    for i, line in enumerate(lines):
+        m = re.search(r"Compiling entry function '\S*fa_fwd_kernelILi(\d+)ELi(\d+)E", line)
+        if not m:
+            continue
+        info = {"D": int(m.group(1)), "NC": int(m.group(2))}
+        for nxt in lines[i + 1:i + 6]:
+            for key, pat in (("registers", r"Used (\d+) registers"),
+                             ("stack_bytes", r"(\d+) bytes stack frame"),
+                             ("spill_store_bytes", r"(\d+) bytes spill stores"),
+                             ("spill_load_bytes", r"(\d+) bytes spill loads")):
+                hit = re.search(pat, nxt)
+                if hit and key not in info:
+                    info[key] = int(hit.group(1))
+        info["dynamic_smem_bytes"] = smem(info["D"], info["NC"])
+        out.append(info)
+    if not out or any(r["dynamic_smem_bytes"] == 0 for r in out):
+        raise RuntimeError(f"K1's ptxas report not found in nvcc.log: {out}")
+    return json.dumps(sorted(out, key=lambda r: (r["D"], r["NC"])))
+
+
 def ring(make, nbytes: int) -> list:
     """Enough copies of one call's inputs to spill the 50 MB L2 between calls."""
     return [make() for _ in range(max(1, math.ceil(2 * L2_BYTES / nbytes)))]
@@ -197,6 +238,13 @@ def check_flash_attention(torch, ops, ref, fa, gen, records, causal_shapes):
     for window, cap, causal in [(48, 0.0, True), (0, 50.0, True), (16, 30.0, True),
                                 (0, 0.0, False)]:
         extra.append((2, 96, 96, 2, 64, causal, window, cap))
+    # what K1's tiling can get wrong: lengths on and beside its 128-row query
+    # and 128-key tile edges, causal queries at the end of a longer kv
+    # (q_offset > 0), a window across tile edges, causal D=128
+    for n in (1, 127, 128, 129, 255, 257):
+        extra += [(1, n, n, 4, 64, False, 0, 0.0), (1, n, n, 4, 128, True, 0, 0.0)]
+    extra += [(1, 100, 300, 4, 64, True, 0, 0.0), (1, 1, 1810, 4, 128, True, 0, 0.0),
+              (2, 300, 300, 2, 64, True, 130, 0.0), (1, 1810, 1810, 8, 128, True, 0, 0.0)]
     out = []
     for shape in [m[1] for m in main] + extra:
         b, lq, lkv, h, d, causal, window, cap = shape
@@ -221,7 +269,7 @@ def check_flash_attention(torch, ops, ref, fa, gen, records, causal_shapes):
             raise RuntimeError(f"flash_attention disagrees with its plain version: {rec}")
         if lq in K1_FAULT_SHOWN and not causal:
             # what a kernel that let the ragged tile's zero padding in would give
-            pad = -lkv % 64
+            pad = -lkv % K1_BN
             padded = [torch.cat([t, t.new_zeros((b, pad, h, d))], 1) for t in (k, v)]
             _, fault_rel, fault_ok = k1_agree(plain_by_heads(ref, q, *padded), want)
             rec["padded_key_fault_rms_rel_err"] = fault_rel
@@ -250,6 +298,7 @@ def check_flash_attention(torch, ops, ref, fa, gen, records, causal_shapes):
             rec["library_ms"] = device_ms(
                 library, [tuple(t.transpose(1, 2) for t in s) for s in sets], 20)
             rec["main_path"] = timed[shape]
+            shares(rec)
         print("K1 flash_attention " + json.dumps(rec), flush=True)
         out.append(rec)
         del q, k, v, o, want
@@ -291,6 +340,7 @@ def check_adaln_rmsnorm(torch, ref, ar, gen, records):
             rec["plain_ms"] = device_ms(ref.adaln_rmsnorm_ref, sets, 20)
             rec["library_ms"] = None       # no single PyTorch call computes it
             rec["main_path"] = "sd3" if d == 1536 else None
+            shares(rec)
         print("K2 adaln_rmsnorm " + json.dumps(rec), flush=True)
         out.append(rec)
     records["adaln_rmsnorm"] = out
@@ -455,6 +505,7 @@ def check_ssm_scan(torch, ref, ss, gen, records, serving_shapes):
             rec["plain_ms"] = device_ms(plain, sets[:1], 1)
             rec["library_ms"] = None       # no single PyTorch call computes the scan
             rec["main_path"] = timed[shape]
+            shares(rec)
         print("K3 ssm_scan " + json.dumps(rec), flush=True)
         out.append(rec)
         del q, k, v, decay, got
@@ -594,6 +645,7 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.library()
     print(f"[2] kernels built and loaded in {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"[2] K1 ptxas: {k1_build_report(_build)}", flush=True)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     records = {}

@@ -73,9 +73,14 @@ def _run(cmds: Sequence[Sequence[str]], log: Path) -> None:
         raise KernelBuildError("nvcc failed:\n" + "\n".join(failed))
 
 
+def build_dir() -> Path:
+    """Where the current sources build: the library and ``nvcc.log``."""
+    return BUILD_ROOT / f"kernels-{source_hash()}"
+
+
 def build() -> Path:
     """Compile (if needed) and return the path of the shared library."""
-    out_dir = BUILD_ROOT / f"kernels-{source_hash()}"
+    out_dir = build_dir()
     lib = out_dir / LIB_NAME
     if lib.is_file():
         return lib

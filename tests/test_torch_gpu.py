@@ -58,6 +58,56 @@ def test_flash_attention_kernel_matches_plain_on_card(cuda, l, d, causal, window
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("l", [1, 127, 128, 129, 255, 257])
+@pytest.mark.parametrize("d,causal", [(64, False), (128, True)])
+def test_flash_attention_kernel_at_tile_edges_on_card(cuda, l, d, causal):
+    """Lengths on and beside K1's 128-row query and 128-key tiles."""
+    q, k, v = (t.to(cuda, torch.bfloat16) for t in _qkv(l, 2, l, l, 3, d))
+    got = tfa.flash_attention(q, k, v, causal=causal)
+    mask = ops.attention_mask(l, l, 0, cuda) if causal else None
+    _assert_attention_close(got, ref.attention_ref(q, k, v, mask))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lq,lkv,h,d,window,softcap", [
+    (100, 300, 4, 64, 0, 0.0), (1, 1810, 4, 128, 0, 0.0),     # q_offset > 0
+    (300, 300, 2, 64, 130, 0.0),                               # a window across tiles
+    (300, 300, 2, 128, 0, 50.0), (129, 400, 2, 128, 100, 30.0),  # softcap at D=128
+])
+def test_flash_attention_kernel_masks_on_card(cuda, lq, lkv, h, d, window, softcap):
+    q, k, v = (t.to(cuda, torch.bfloat16) for t in _qkv(lq + lkv, 2, lq, lkv, h, d))
+    got = tfa.flash_attention(q, k, v, causal=True, window=window, softcap=softcap)
+    want = ref.attention_ref(q, k, v, ops.attention_mask(lq, lkv, window, cuda), softcap)
+    _assert_attention_close(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["fused", "head_major"])
+@pytest.mark.parametrize("d,causal", [(64, False), (128, True)])
+def test_flash_attention_kernel_reads_strided_views_of_a_fused_projection(cuda, d, causal,
+                                                                          layout):
+    """q, k and v as views of one (B, L, 3, H, D) projection, or of
+    (B, H, L, D) tensors transposed: strides a multiple of 8, no tensor
+    contiguous on its own, the head stride above the row stride in the
+    second."""
+    b, l, h = 2, 333, 3
+    rng = np.random.default_rng(d)
+    if layout == "fused":
+        qkv = torch.from_numpy(rng.standard_normal((b, l, 3, h, d)).astype(np.float32))
+        q, k, v = qkv.to(cuda, torch.bfloat16).unbind(2)
+        assert q.stride() == (l * 3 * h * d, 3 * h * d, d, 1)
+    else:
+        q, k, v = (torch.from_numpy(rng.standard_normal((b, h, l, d)).astype(np.float32))
+                   .to(cuda, torch.bfloat16).transpose(1, 2) for _ in range(3))
+        assert q.stride() == (h * l * d, d, l * d, 1)
+    assert not q.is_contiguous()
+    got = tfa.flash_attention(q, k, v, causal=causal)
+    mask = ops.attention_mask(l, l, 0, cuda) if causal else None
+    _assert_attention_close(got, ref.attention_ref(q.contiguous(), k.contiguous(),
+                                                   v.contiguous(), mask))
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, BF16_TOL)])
 def test_adaln_rmsnorm_kernel_matches_plain_on_card(cuda, dtype, tol):
     x = torch.randn(2, 333, 1536, device=cuda).to(dtype)

@@ -2,11 +2,13 @@
 
 K1's check must pass a kernel that differs from the plain version only by
 K1's own rounding, and reject one that lets the zero padding of its ragged
-last KV tile in. Phase 4's limit on the DiT's output must sit above what
-bf16 itself gives and below what a wiring fault gives. The rounding model
-below is K1's arithmetic in plain PyTorch: f32 scores per 64-key tile, an
-online softmax with f32 running max and sum, and the unnormalised
-probabilities rounded to bf16 before the P V product.
+last KV tile in, one that forgets to rescale its accumulator, and one whose
+ring of K/V stages slips by a tile. Phase 4's limit on the DiT's output must
+sit above what bf16 itself gives and below what a wiring fault gives. The
+rounding model below is K1's arithmetic in plain PyTorch: f32 scores per
+128-key tile, scaled by scale * log2(e) in f32, an online softmax in base 2
+with f32 running max and sum, and the unnormalised probabilities rounded to
+bf16 before the P V product.
 
   PYTHONPATH=src python -m pytest -s tests/test_torch_smoke_checks.py
 
@@ -30,43 +32,68 @@ smoke = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(smoke)
 
 
-def k1_rounding_model(q, k, v, pad_keys=False, causal=False):
+K1_FAULTS = ("acc not rescaled", "P times the previous tile's V")
+
+
+def k1_rounding_model(q, k, v, pad_keys=False, causal=False, fault=None):
     """K1's arithmetic on the CPU; ``pad_keys`` lets the last tile's zero
-    padding in at score 0, as a kernel without the ragged-edge mask would."""
+    padding in at score 0, as a kernel without the ragged-edge mask would;
+    ``fault`` is one of K1_FAULTS: the accumulator not rescaled when the row
+    max moves, or each tile's P multiplied by the V its ring stage held one
+    tile before (the first tile's own V for the first)."""
     b, lq, h, d = q.shape
+    bn = smoke.K1_BN
     if pad_keys:
-        pad = -k.shape[1] % 64
+        pad = -k.shape[1] % bn
         k, v = (torch.cat([t, t.new_zeros((b, pad, h, d))], 1) for t in (k, v))
     qf, kf, vf = q.float(), k.float(), v.float()
+    # the kernel's f32 product of the scale (a C float) and log2(e)
+    sl2 = torch.tensor(1.0 / math.sqrt(d)) * torch.tensor(math.log2(math.e))
     m = torch.full((b, h, lq, 1), -math.inf)
     lsum = torch.zeros((b, h, lq, 1))
     acc = torch.zeros((b, h, lq, d))
-    for k0 in range(0, k.shape[1], 64):
-        s = torch.einsum("bqhd,bkhd->bhqk", qf, kf[:, k0:k0 + 64]) / math.sqrt(d)
+    for k0 in range(0, k.shape[1], bn):
+        s = torch.einsum("bqhd,bkhd->bhqk", qf, kf[:, k0:k0 + bn]) * sl2
         if causal:                       # the reference's mask value, as K1 keeps it
             kpos = torch.arange(k0, k0 + s.shape[-1])
             s = torch.where(kpos[None, :] <= torch.arange(lq)[:, None], s,
                             torch.tensor(-1e30))
         m_new = torch.maximum(m, s.amax(-1, keepdim=True))
-        alpha = torch.exp(m - m_new)
-        p = torch.exp(s - m_new)
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new)
         lsum = alpha * lsum + p.sum(-1, keepdim=True)
-        acc = acc * alpha + torch.einsum("bhqk,bkhd->bhqd", p.bfloat16().float(),
-                                         vf[:, k0:k0 + 64])
+        v0 = max(0, k0 - bn) if fault == K1_FAULTS[1] else k0
+        pv = torch.einsum("bhqk,bkhd->bhqd", p.bfloat16().float(), vf[:, v0:v0 + s.shape[-1]])
+        acc = (acc if fault == K1_FAULTS[0] else acc * alpha) + pv
         m = m_new
     return (acc / lsum).permute(0, 2, 1, 3).bfloat16()
 
 
+def _k1_inputs(length):
+    g = torch.Generator().manual_seed(length)
+    return [torch.randn((1, length, 4, 64), generator=g).bfloat16() for _ in range(3)]
+
+
 @pytest.mark.parametrize("length", [1101, 4173])
 def test_k1_check_passes_rounding_and_rejects_the_padded_key_fault(length):
-    g = torch.Generator().manual_seed(length)
-    q, k, v = (torch.randn((1, length, 4, 64), generator=g).bfloat16() for _ in range(3))
+    q, k, v = _k1_inputs(length)
     want = ref.attention_ref(q, k, v)
     err, rel, ok = smoke.k1_agree(k1_rounding_model(q, k, v), want)
     print(f"L={length} rounding: max err {err:.5f}, rms err / rms {rel:.5f}")
     assert ok and rel < smoke.K1_RMS / 1.4
     err, rel, ok = smoke.k1_agree(k1_rounding_model(q, k, v, pad_keys=True), want)
     print(f"L={length} padded-key fault: max err {err:.5f}, rms err / rms {rel:.5f}")
+    assert not ok
+
+
+@pytest.mark.parametrize("fault", K1_FAULTS)
+@pytest.mark.parametrize("length", [1101, 4173])
+def test_k1_check_rejects_the_redesigns_faults(length, fault):
+    """Two faults a pipelined, register-resident K1 can introduce."""
+    q, k, v = _k1_inputs(length)
+    want = ref.attention_ref(q, k, v)
+    err, rel, ok = smoke.k1_agree(k1_rounding_model(q, k, v, fault=fault), want)
+    print(f"L={length} {fault}: max err {err:.5f}, rms err / rms {rel:.5f}")
     assert not ok
 
 
