@@ -6,7 +6,8 @@
 Phases:
   1. require a CUDA card; print its name and power limit; turn TF32 off;
   2. build the Hopper kernels from ``src/repro_torch/csrc``, and print K1's
-     registers, spills and shared memory per instantiation (from ptxas);
+     and K3's registers and spills per instantiation (from ptxas), and K1's
+     shared memory;
   3. hold each kernel against its plain PyTorch version on the same CUDA
      tensors at every shape the serve phase gives it (and the variant
      shapes of the reference's kernel tests, and for K1 the lengths on and
@@ -23,9 +24,13 @@ Phases:
      20 steps) stage by stage through ``repro_torch.launch.quickstart.serve``,
      counting the kernels' launches;
   6. hold K3 (the gated linear-attention scan) against its plain version at
-     every shape the LLM serve phase gives it, at the reference's kernel-test
-     shapes and at the decay floor (where it must also give the same result
-     when the sequence is cut at a point that is no chunk boundary);
+     every shape and layout the LLM serve phase gives it, at the reference's
+     kernel-test shapes, at the decay floor (where it must also give the same
+     result when the sequence is cut at a point that is no chunk boundary),
+     with q, k and the decay all shared across heads, on and beside the
+     edges of its chunks and of its ring of staged chunks, and at a layout
+     that takes its element-wise staging path; each record prints the
+     kernel's plan (rows of S per thread, slice, staging path);
   7. check that a full-width cut of rwkv6-3b (2 layers) and of zamba2-1.2b
      (its 6-layer cycle) agrees on the card (bf16, kernels) with the same
      weights on the CPU (float32, plain versions): the
@@ -178,19 +183,17 @@ def shares(rec: dict) -> None:
     rec["vs_library"] = rec["ms"] / rec["library_ms"] if rec["library_ms"] else None
 
 
-def k1_build_report(_build) -> str:
-    """K1's registers, spills and shared memory per instantiation (head dim D,
-    NC consumer warpgroups): the first two from ``ptxas -v`` in the build's
-    nvcc.log, the dynamic shared memory each launch asks for from the
-    kernel's own layout."""
+def ptxas_report(_build, entry: str, params) -> list:
+    """Registers, stack and spills of each instantiation of one kernel, from
+    ``ptxas -v`` in the build's nvcc.log: ``entry`` matches the mangled name
+    and its groups are the template arguments, named by ``params``."""
     lines = open(_build.build_dir() / "nvcc.log").read().splitlines()
-    smem = _build.function("repro_flash_attention_smem_bytes", [ctypes.c_int, ctypes.c_int])
     out = []
     for i, line in enumerate(lines):
-        m = re.search(r"Compiling entry function '\S*fa_fwd_kernelILi(\d+)ELi(\d+)E", line)
+        m = re.search(r"Compiling entry function '\S*" + entry, line)
         if not m:
             continue
-        info = {"D": int(m.group(1)), "NC": int(m.group(2))}
+        info = dict(zip(params, m.groups()))
         for nxt in lines[i + 1:i + 6]:
             for key, pat in (("registers", r"Used (\d+) registers"),
                              ("stack_bytes", r"(\d+) bytes stack frame"),
@@ -199,11 +202,39 @@ def k1_build_report(_build) -> str:
                 hit = re.search(pat, nxt)
                 if hit and key not in info:
                     info[key] = int(hit.group(1))
-        info["dynamic_smem_bytes"] = smem(info["D"], info["NC"])
         out.append(info)
-    if not out or any(r["dynamic_smem_bytes"] == 0 for r in out):
-        raise RuntimeError(f"K1's ptxas report not found in nvcc.log: {out}")
+    if not out:
+        raise RuntimeError(f"no ptxas report for {entry} in nvcc.log")
+    return out
+
+
+def k1_build_report(_build) -> str:
+    """K1's registers, spills and shared memory per instantiation (head dim D,
+    NC consumer warpgroups): the first two from ``ptxas -v``, the dynamic
+    shared memory each launch asks for from the kernel's own layout."""
+    smem = _build.function("repro_flash_attention_smem_bytes", [ctypes.c_int, ctypes.c_int])
+    out = ptxas_report(_build, r"fa_fwd_kernelILi(\d+)ELi(\d+)E", ("D", "NC"))
+    for info in out:
+        info["D"], info["NC"] = int(info["D"]), int(info["NC"])
+        info["dynamic_smem_bytes"] = smem(info["D"], info["NC"])
+    if any(r["dynamic_smem_bytes"] == 0 for r in out):
+        raise RuntimeError(f"K1's shared memory not reported: {out}")
     return json.dumps(sorted(out, key=lambda r: (r["D"], r["NC"])))
+
+
+def k3_build_report(_build) -> str:
+    """K3's registers and spills per instantiation: dtype x read x decay x R
+    (rows of S per thread, which sets the slice: 8 R columns)."""
+    out = ptxas_report(_build, r"ssm_scan_kernelI(f|13__nv_bfloat16)Lb([01])ELb([01])ELi(\d+)E",
+                       ("dtype", "read", "decay", "rows"))
+    for info in out:
+        info["dtype"] = "float32" if info["dtype"] == "f" else "bfloat16"
+        info["read"] = "strict" if info["read"] == "1" else "inclusive"
+        info["decay"] = "per-token" if info["decay"] == "1" else "per-channel"
+        info["rows"] = int(info["rows"])
+    if len(out) != 24:
+        raise RuntimeError(f"K3: {len(out)} instantiations in nvcc.log, expected 24")
+    return json.dumps(sorted(out, key=lambda r: (r["dtype"], r["read"], r["decay"], r["rows"])))
 
 
 def ring(make, nbytes: int) -> list:
@@ -406,19 +437,30 @@ def group_lengths(reqs) -> list:
             for i in range(0, len(reqs), LLM_BATCH)]
 
 
-def scan_inputs(torch, gen, b, h, l, dk, dv, *, bonus, shared, dtype, floor=False,
+def scan_inputs(torch, gen, b, h, l, dk, dv, *, bonus, layout, dtype, floor=False,
                 state=False):
-    """K3's inputs; ``shared``: q, k and the decay shared across heads, as
-    stride-0 views, the way Mamba2 passes them."""
+    """K3's inputs in one of four layouts: "per-head" (rwkv6: every input per
+    head); "zamba2" (as Mamba2 passes them, models/ssm.py: q and k shared
+    across heads as stride-0 views, the decay per head and broadcast over K);
+    "shared" (q, k and the decay all shared across heads); "transposed"
+    (every input per head with a last stride other than 1, which the
+    kernel's 16-byte staging cannot take)."""
     def rn(*shape):
         return torch.randn(shape, generator=gen, device="cuda")
-    hq = 1 if shared else h
-    q, k = (rn(b, hq, l, dk).to(dtype).expand(b, h, l, dk) for _ in range(2))
-    if floor:
-        decay = torch.full((b, hq, l, dk), math.exp(-5.4), device="cuda")
+    hq = h if layout in ("per-head", "transposed") else 1
+    if layout == "transposed":
+        q, k = (rn(b, h, dk, l).to(dtype).transpose(2, 3) for _ in range(2))
+        v = rn(b, h, dv, l).to(dtype).transpose(2, 3)
     else:
-        decay = torch.exp(-torch.exp(rn(b, hq, l, 1 if shared else dk)))
-    v = rn(b, h, l, dv).to(dtype)
+        q, k = (rn(b, hq, l, dk).to(dtype).expand(b, h, l, dk) for _ in range(2))
+        v = rn(b, h, l, dv).to(dtype)
+    if floor:
+        decay = torch.full((b, h, l, dk), math.exp(-5.4), device="cuda")
+    elif layout == "transposed":
+        decay = torch.exp(-torch.exp(rn(b, h, dk, l))).transpose(2, 3)
+    else:
+        decay = torch.exp(-torch.exp(rn(b, 1 if layout == "shared" else h, l,
+                                        dk if layout == "per-head" else 1)))
     return (q, k, v, decay.expand(b, h, l, dk), rn(h, dk) if bonus else None,
             rn(b, h, dk, dv) if state else None)
 
@@ -444,28 +486,38 @@ def unique_bytes(t) -> int:
 
 
 def check_ssm_scan(torch, ref, ss, gen, records, serving_shapes):
-    """``serving_shapes``: (path, B, L, H, bonus, shared) of every call phase 8
-    makes: rwkv6's (B, 40, L, 64, 64) with the bonus, zamba2's (B, 64, L, 64,
-    64) without it and with q, k and the decay shared across heads."""
-    main = [(path, (b, h, l, 64, 64, bonus, shared, torch.bfloat16, False))
-            for path, b, l, h, bonus, shared in serving_shapes]
+    """``serving_shapes``: (path, B, L, H, bonus, layout) of every call phase 8
+    makes: rwkv6's (B, 40, L, 64, 64) with the bonus, every input per head;
+    zamba2's (B, 64, L, 64, 64) without it, q and k shared across heads and
+    the decay per head (``scan_inputs``)."""
+    main = [(path, (b, h, l, 64, 64, bonus, layout, torch.bfloat16, False))
+            for path, b, l, h, bonus, layout in serving_shapes]
     timed = {shape: path for path, shape in main}
     # the reference's kernel-test shapes (tests/test_kernels.py), f32, with an
     # initial state; then the decay floor at L >= 64
-    extra = [(b, h, l, dk, dv, bonus, False, torch.float32, False)
+    extra = [(b, h, l, dk, dv, bonus, "per-head", torch.float32, False)
              for b, h, l, dk, dv, bonus in [(2, 2, 100, 16, 32, False), (1, 3, 64, 32, 32, True),
                                             (2, 1, 33, 8, 8, True), (1, 2, 16, 64, 64, False),
                                             (1, 1, 7, 4, 4, True)]]
-    # enough blocks that the kernel takes its 32-column slice, with V = 40 ragged in it
-    extra += [(8, 64, 70, 64, 40, True, False, torch.float32, False)]
-    extra += [(2, 3, 5 * ss.CHUNK + 7, 64, 64, bonus, False, torch.bfloat16, True)
+    # enough blocks for the kernel's narrower slices, with V = 40 ragged in them
+    extra += [(8, 64, 70, 64, 40, True, "per-head", torch.float32, False)]
+    extra += [(2, 3, 5 * ss.CHUNK + 7, 64, 64, bonus, "per-head", torch.bfloat16, True)
+              for bonus in (False, True)]
+    # q, k and the decay all shared across heads; rwkv6's heads on and beside
+    # the edges of a chunk and of the ring of staged chunks; a layout that
+    # takes the element-wise staging path
+    extra += [(LLM_BATCH, 64, 854, 64, 64, False, "shared", torch.bfloat16, False)]
+    extra += [(1, 40, l, 64, 64, True, "per-head", torch.bfloat16, False)
+              for l in (ss.CHUNK - 1, ss.CHUNK, ss.CHUNK + 1, ss.STAGES * ss.CHUNK,
+                        ss.STAGES * ss.CHUNK + 1)]
+    extra += [(2, 4, 100, 64, 64, bonus, "transposed", torch.bfloat16, False)
               for bonus in (False, True)]
     out = []
     for shape in [m[1] for m in main] + extra:
-        b, h, l, dk, dv, bonus, shared, dtype, floor = shape
+        b, h, l, dk, dv, bonus, layout, dtype, floor = shape
 
         def make():
-            return scan_inputs(torch, gen, b, h, l, dk, dv, bonus=bonus, shared=shared,
+            return scan_inputs(torch, gen, b, h, l, dk, dv, bonus=bonus, layout=layout,
                                dtype=dtype, floor=floor, state=dtype == torch.float32)
         q, k, v, decay, u, s0 = make()
         got = ss.ssm_scan(q, k, v, decay, bonus=u, initial_state=s0)
@@ -473,9 +525,9 @@ def check_ssm_scan(torch, ref, ss, gen, records, serving_shapes):
         if not all(torch.isfinite(t).all() for t in got):
             raise RuntimeError(f"ssm_scan: non-finite output at {shape}")
         err, state_err, ok = scan_agree(got, ref.ssm_scan_ref(q, k, v, decay, u, s0))
-        rec = {"shape": [b, h, l, dk, dv], "bonus": bonus, "shared": shared,
+        rec = {"shape": [b, h, l, dk, dv], "bonus": bonus, "layout": layout,
                "dtype": str(dtype).split(".")[-1], "floor": floor, "max_abs_err": err,
-               "state_max_abs_err": state_err}
+               "state_max_abs_err": state_err, "plan": ss.plan(q, k, v, decay)}
         if not ok:
             raise RuntimeError(f"ssm_scan disagrees with its plain version: {rec}")
         if floor:
@@ -646,6 +698,7 @@ def main() -> int:
     _build.library()
     print(f"[2] kernels built and loaded in {time.perf_counter() - t0:.1f} s", flush=True)
     print(f"[2] K1 ptxas: {k1_build_report(_build)}", flush=True)
+    print(f"[2] K3 ptxas: {k3_build_report(_build)}", flush=True)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     records = {}
@@ -704,7 +757,8 @@ def main() -> int:
 
     check_ssm_scan(torch, ref, ss, gen, records,
                    [(arch, LLM_BATCH, l, C.get(arch).resolved_ssm_heads, arch == "rwkv6-3b",
-                     arch == "zamba2-1.2b") for arch in LLM_ARCHS for l in llm_groups[arch]])
+                     "per-head" if arch == "rwkv6-3b" else "zamba2")
+                    for arch in LLM_ARCHS for l in llm_groups[arch]])
     print("[6] ssm_scan agrees with its plain version", flush=True)
 
     for arch in LLM_ARCHS:

@@ -4,9 +4,11 @@ Replaces the Pallas TPU kernel ``repro/kernels/ssm_scan.py``, which serves
 both Mamba2 (inclusive read) and RWKV6 (strict-past read plus the bonus
 term). The CUDA kernel runs the recurrence token by token with the state in
 registers, so it stays finite at the decay floor and does not depend on its
-chunk length; it reads q/k/v/decay through their strides, so Mamba2's
-head-shared B/C and per-head decay stay stride-0 views. This wrapper checks
-what it is given and launches; it never falls back.
+chunk length; it stages chunks of CHUNK tokens through a ring of STAGES
+shared-memory stages by TMA, and reads q/k/v/decay through their strides,
+so Mamba2's head-shared B/C and per-head decay stay stride-0 views (a decay
+whose last stride is 0 takes the kernel's scalar-decay path). This
+wrapper checks what it is given and launches; it never falls back.
 """
 from __future__ import annotations
 
@@ -17,9 +19,10 @@ import torch
 
 from repro_torch.kernels import _build
 
-# tokens the kernel stages in shared memory per pass (CHUNK in csrc/ssm_scan.cu);
-# the result does not depend on it
-CHUNK = 32
+# tokens the kernel stages per chunk, and chunks in its ring of shared-memory
+# stages (CHUNK and STAGES in csrc/ssm_scan.cu); the result depends on neither
+CHUNK = 16
+STAGES = 3
 # per-step log-decay clamp of the TPU kernel (``repro/kernels/ssm_scan.py``),
 # kept by the kernel and by its plain version alike
 MAX_NEG_LOGW = 5.4
@@ -28,6 +31,9 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _VP = ctypes.c_void_p
 _ARGTYPES = [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, ctypes.c_int, ctypes.c_int, ctypes.c_int,
              ctypes.c_int, ctypes.c_int, _VP, ctypes.c_int, _VP]
+_PLAN_ARGTYPES = [_VP, _VP, _VP, _VP] + [ctypes.c_int] * 6 + [_VP, ctypes.c_int, _VP]
+# the tensors the kernel copies element by element (ELEM_* in csrc/ssm_scan.cu)
+_ELEM = (("q", 1), ("k", 2), ("v", 4), ("decay", 8))
 
 
 def _check(q, k, v, decay, bonus, initial_state) -> None:
@@ -68,19 +74,60 @@ def ssm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, decay: torch.Ten
     Returns (out (B, H, L, V) in v's dtype, final_state (B, H, K, V) f32).
     Without a bonus the read is inclusive (Mamba2), with one it is the strict
     past plus the bonus term (RWKV6)."""
+    return _scan("repro_ssm_scan", (), q, k, v, decay, bonus, initial_state)
+
+
+def ssm_scan_rows(rows: int, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  decay: torch.Tensor, *, bonus: Optional[torch.Tensor] = None,
+                  initial_state: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``ssm_scan`` with the kernel's rows of S per thread forced to ``rows``
+    (2, 4 or 8: slices of 16, 32 or 64 columns), for the tile sweep."""
+    return _scan("repro_ssm_scan_rows", (rows,), q, k, v, decay, bonus, initial_state)
+
+
+def _strides(q, k, v, decay):
+    return (ctypes.c_longlong * 16)(*q.stride(), *k.stride(), *v.stride(), *decay.stride())
+
+
+def _scan(name, lead, q, k, v, decay, bonus, initial_state):
     _check(q, k, v, decay, bonus, initial_state)
     b, h, l, dk = q.shape
     dv = v.shape[3]
     out = torch.empty((b, h, l, dv), dtype=v.dtype, device=v.device)
     final = torch.empty((b, h, dk, dv), dtype=torch.float32, device=v.device)
-    strides = (ctypes.c_longlong * 16)(*q.stride(), *k.stride(), *v.stride(), *decay.stride())
-    fn = _build.function("repro_ssm_scan", _ARGTYPES)
+    strides = _strides(q, k, v, decay)
+    fn = _build.function(name, [ctypes.c_int] * len(lead) + _ARGTYPES)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), decay.data_ptr(),
+        err = fn(*lead, q.data_ptr(), k.data_ptr(), v.data_ptr(), decay.data_ptr(),
                  None if bonus is None else bonus.data_ptr(),
                  None if initial_state is None else initial_state.data_ptr(),
                  out.data_ptr(), final.data_ptr(), b, h, l, dk, dv, ctypes.addressof(strides),
                  DTYPES[q.dtype], stream)
     _build.check(err, "ssm_scan")
     return out, final
+
+
+def plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, decay: torch.Tensor, *,
+         bonus: Optional[torch.Tensor] = None) -> dict:
+    """What the kernel does with these inputs: its rows of S per thread, the
+    slice of V a block takes, the staging path ("tma", or which tensors it
+    copies element by element), the decay path (a per-token decay lands by
+    4-byte cp.async), its shared memory per block and the blocks resident
+    per SM."""
+    _check(q, k, v, decay, bonus, None)
+    out = (ctypes.c_int * 6)()
+    strides = _strides(q, k, v, decay)
+    fn = _build.function("repro_ssm_scan_plan", _PLAN_ARGTYPES)
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), decay.data_ptr(), bonus is not None,
+                 q.shape[0], q.shape[1], q.shape[2], q.shape[3], v.shape[3],
+                 ctypes.addressof(strides), DTYPES[q.dtype], out)
+    _build.check(err, "ssm_scan plan")
+    rows, cols, elem, scalar, smem, per_sm = out
+    staging = [name for name, bit in _ELEM if elem & bit]
+    return {"rows": rows, "slice": cols,
+            "staging": "element-wise " + ",".join(staging) if staging else "tma",
+            "decay": "per-token" if scalar else "per-channel", "smem_bytes": smem,
+            "blocks_per_sm": per_sm}

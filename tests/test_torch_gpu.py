@@ -158,19 +158,24 @@ def _assert_scan_close(got, want):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("b,h,l,dk,dv,bonus,dtype,shared", [
-    (2, 40, 300, 64, 64, True, torch.bfloat16, False),     # rwkv6's heads
-    (2, 64, 300, 64, 64, False, torch.bfloat16, True),     # mamba2's, B/C and decay shared
-    (2, 2, 100, 16, 32, False, torch.float32, False),
-    (1, 1, 7, 4, 4, True, torch.float32, False),
-    (8, 64, 70, 64, 40, True, torch.float32, False),       # the 32-column slice, V ragged
+@pytest.mark.parametrize("b,h,l,dk,dv,bonus,dtype,layout", [
+    (2, 40, 300, 64, 64, True, torch.bfloat16, "per-head"),   # rwkv6's heads
+    (2, 64, 300, 64, 64, False, torch.bfloat16, "zamba2"),    # B/C shared, decay per head
+    (2, 64, 300, 64, 64, False, torch.bfloat16, "shared"),    # B/C and decay shared
+    (2, 2, 100, 16, 32, False, torch.float32, "per-head"),
+    (1, 1, 7, 4, 4, True, torch.float32, "per-head"),
+    (8, 64, 70, 64, 40, True, torch.float32, "per-head"),     # narrower slices, V ragged
 ])
-def test_ssm_scan_kernel_matches_plain_on_card(cuda, b, h, l, dk, dv, bonus, dtype, shared):
+def test_ssm_scan_kernel_matches_plain_on_card(cuda, b, h, l, dk, dv, bonus, dtype, layout):
+    """Layouts as chip_smoke.scan_inputs names them: "zamba2" is what Mamba2
+    passes (models/ssm.py), q and k stride-0 across heads and the decay one
+    value per (token, head), stride 0 over K."""
     g = torch.Generator(device=cuda).manual_seed(b * h + l)
     rn = lambda *s: torch.randn(s, generator=g, device=cuda)
-    hq = 1 if shared else h
+    hq = h if layout == "per-head" else 1
     q, k = (rn(b, hq, l, dk).to(dtype).expand(b, h, l, dk) for _ in range(2))
-    decay = torch.exp(-torch.exp(rn(b, hq, l, 1 if shared else dk))).expand(b, h, l, dk)
+    decay = torch.exp(-torch.exp(rn(b, 1 if layout == "shared" else h, l,
+                                    dk if layout == "per-head" else 1))).expand(b, h, l, dk)
     v = rn(b, h, l, dv).to(dtype)
     u = rn(h, dk) if bonus else None
     s0 = rn(b, h, dk, dv)
@@ -198,3 +203,30 @@ def test_ssm_scan_kernel_at_the_decay_floor_does_not_depend_on_chunks(cuda, bonu
     o2, s2 = tss.ssm_scan(q[:, :, cut:], k[:, :, cut:], v[:, :, cut:], decay[:, :, cut:],
                           bonus=u, initial_state=s1)
     _assert_scan_close((torch.cat([o1, o2], 2), s2), (o, s))
+
+
+@pytest.mark.gpu
+def test_ssm_scan_kernel_staging_paths_on_card(cuda):
+    """The served layouts take the TMA staging (rwkv6's head views of (B, L,
+    H*64) rows; zamba2's B/C slices of its conv rows, shared across heads,
+    and its per-head decay on the per-token path); a last stride other than
+    1 takes the element-wise copy into the same ring and agrees with the
+    plain version all the same."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    rn = lambda *s: torch.randn(s, generator=g, device=cuda)
+    b, l, h = 2, 70, 4
+    heads = lambda t: t.reshape(b, l, h, 64).transpose(1, 2)
+    q, k, v = (heads(rn(b, l, h * 64).to(torch.bfloat16)) for _ in range(3))
+    w = heads(torch.exp(-torch.exp(rn(b, l, h * 64))))
+    assert tss.plan(q, k, v, w)["staging"] == "tma"
+    xbc = rn(b, l, h * 64 + 2 * 64).to(torch.bfloat16)
+    bs, cs = xbc[..., h * 64:h * 64 + 64], xbc[..., h * 64 + 64:]
+    qz, kz = (t[:, None].expand(b, h, l, 64) for t in (cs, bs))
+    wz = torch.exp(-torch.exp(rn(b, l, h))).transpose(1, 2)[..., None].expand(b, h, l, 64)
+    p = tss.plan(qz, kz, v, wz)
+    assert p["staging"] == "tma" and p["decay"] == "per-token"
+    _assert_scan_close(tss.ssm_scan(qz, kz, v, wz), ref.ssm_scan_ref(qz, kz, v, wz))
+    qt, kt, vt = (rn(b, h, 64, l).to(torch.bfloat16).transpose(2, 3) for _ in range(3))
+    assert tss.plan(qt, kt, vt, w)["staging"] == "element-wise q,k,v"
+    u = rn(h, 64)
+    _assert_scan_close(tss.ssm_scan(qt, kt, vt, w, bonus=u), ref.ssm_scan_ref(qt, kt, vt, w, u))

@@ -220,3 +220,89 @@ def test_llm_cut_limits_sit_between_bf16_rounding_and_faults(arch, monkeypatch):
     readings = {k: smoke.rms_rel(moved[k], want[k]) for k in want}
     print(f"{arch} {name}: {readings}")
     assert any(readings[k] > tol for k, tol in smoke.LLM_CUT_TOL.items()), name
+
+
+def _fma(a, b, c):
+    """f32 fused multiply-add: the exact product and sum in f64, rounded once
+    to f32 (the f64 sum's own rounding is far below f32's)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def k3_order_model(q, k, v, decay, bonus=None, rows=8, fault=None):
+    """K3's arithmetic on the CPU, in f32: per token and state element the
+    kernel's FMAs (kv = k v; strict: part += q (u kv + S), S = w S + kv;
+    inclusive: S = w S + kv, part += q S) on the clamped decay, with the read
+    summed in the kernel's order over K: each of the 64 / rows threads of a
+    column group chains its rows (csrc/ssm_scan.cu ``row_of``), neighbours
+    (sub, sub ^ 1) and then (sub, sub ^ 2) add their partials, and the sums
+    of the 4-thread groups are added in order.
+    ``fault``: "stage slip" (token t reads k and v of token t - CHUNK, as a
+    ring whose stage index slips by one chunk would), "unclamped decay"."""
+    subs = 64 // rows
+    idx = torch.tensor([[4 * s + 4 * subs * (j // 4) + j % 4 if rows >= 4 else rows * s + j
+                         for j in range(rows)] for s in range(subs)])
+    b, h, l, dk = q.shape
+    pad = lambda t: torch.nn.functional.pad(t.float(), (0, 64 - t.shape[-1]))
+    qf, kf, vf = pad(q), pad(k), v.float()
+    wf = decay.float() if fault == "unclamped decay" else ref.clamp_decay(decay)
+    wf = torch.nn.functional.pad(wf, (0, 64 - dk), value=1.0)
+    if fault == "stage slip":
+        from repro_torch.kernels import ssm_scan as ss
+        shift = lambda t: torch.cat([t[:, :, :ss.CHUNK], t[:, :, :-ss.CHUNK]], 2)
+        kf, vf = shift(kf), shift(vf)
+    u = None if bonus is None else pad(bonus)[None, :, :, None].expand(b, h, 64, 1)
+    s = torch.zeros((b, h, 64, v.shape[-1]))
+    outs = []
+    for t in range(l):
+        kv = kf[:, :, t, :, None] * vf[:, :, t, None, :]
+        w = wf[:, :, t, :, None]
+        if u is not None:
+            read, s = _fma(u, kv, s), _fma(w, s, kv)
+        else:
+            s = _fma(w, s, kv)
+            read = s
+        qt = qf[:, :, t][:, :, idx]                   # (B, H, SUBS, R)
+        rd = read[:, :, idx]                          # (B, H, SUBS, R, V)
+        part = torch.zeros(rd.shape[:3] + rd.shape[4:])
+        for j in range(rows):
+            part = _fma(qt[:, :, :, j, None], rd[:, :, :, j], part)
+        pairs = part[:, :, 0::2] + part[:, :, 1::2]
+        quads = pairs[:, :, 0::2] + pairs[:, :, 1::2]
+        acc = quads[:, :, 0]
+        for m in range(1, subs // 4):
+            acc = acc + quads[:, :, m]
+        outs.append(acc)
+    return torch.stack(outs, 2).to(v.dtype), s[:, :, :dk]
+
+
+def _k3_inputs(b, h, l, bonus, floor=False, seed=5):
+    g = torch.Generator().manual_seed(seed)
+    q, k, v = (torch.randn((b, h, l, 64), generator=g) for _ in range(3))
+    decay = (torch.full((b, h, l, 64), math.exp(-5.4)) if floor
+             else torch.exp(-torch.exp(torch.randn((b, h, l, 64), generator=g))))
+    return q, k, v, decay, torch.randn((h, 64), generator=g) if bonus else None
+
+
+@pytest.mark.parametrize("rows", [2, 4, 8])
+@pytest.mark.parametrize("bonus", [False, True])
+@pytest.mark.parametrize("floor", [False, True])
+def test_k3_limits_hold_the_kernels_order_of_sums(rows, bonus, floor):
+    """K3's limits (chip_smoke.scan_agree) pass the kernel's f32 arithmetic in
+    its own order of the sums over K, at (1, 2, 300, 64, 64) and at the decay
+    floor, for each register tile."""
+    q, k, v, decay, u = _k3_inputs(1, 2, 300, bonus, floor)
+    got = k3_order_model(q, k, v, decay, u, rows=rows)
+    err, state_err, ok = smoke.scan_agree(got, ref.ssm_scan_ref(q, k, v, decay, u))
+    print(f"K3 order model R={rows} bonus={bonus} floor={floor}: max |err| {err:.3g}, "
+          f"state {state_err:.3g}")
+    assert ok and err > 0
+
+
+@pytest.mark.parametrize("fault", ["stage slip", "unclamped decay"])
+@pytest.mark.parametrize("bonus", [False, True])
+def test_k3_limits_reject_the_rings_faults(fault, bonus):
+    q, k, v, decay, u = _k3_inputs(1, 2, 300, bonus)
+    got = k3_order_model(q, k, v, decay, u, rows=4, fault=fault)
+    err, state_err, ok = smoke.scan_agree(got, ref.ssm_scan_ref(q, k, v, decay, u))
+    print(f"K3 {fault} bonus={bonus}: max |err| {err:.3g}, state {state_err:.3g}")
+    assert not ok, fault
