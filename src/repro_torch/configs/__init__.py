@@ -2,7 +2,8 @@
 
 ``get(id)`` returns the full published config; ``get_smoke`` a reduced
 same-family variant that runs on a CPU in seconds. Counterpart of
-``repro/configs/__init__.py``; ported so far: ``sd3``, ``zamba2-1.2b`` and
+``repro/configs/__init__.py``; ported so far: the four diffusion pipelines
+(``sd3``, ``flux``, ``cogvideox``, ``hunyuanvideo``), ``zamba2-1.2b`` and
 ``rwkv6-3b``.
 """
 from __future__ import annotations
@@ -11,12 +12,15 @@ import importlib
 
 ARCH_IDS = ("zamba2-1.2b", "rwkv6-3b")
 
-PIPELINE_IDS = ("sd3",)
+PIPELINE_IDS = ("sd3", "flux", "cogvideox", "hunyuanvideo")
 
 _MODULES = {
     "zamba2-1.2b": "zamba2_1p2b",
     "rwkv6-3b": "rwkv6_3b",
     "sd3": "sd3",
+    "flux": "flux",
+    "cogvideox": "cogvideox",
+    "hunyuanvideo": "hunyuanvideo",
 }
 
 

@@ -6,7 +6,9 @@ chips, the Resource-Aware Dispatcher dispatches the pending requests onto
 idle units, and each decision's Encode -> Diffuse -> Decode runs on the
 device with every stage timed.
 
-  PYTHONPATH=src python -m repro_torch.launch.quickstart --device cpu --smoke
+  PYTHONPATH=src python -m repro_torch.launch.quickstart --pipeline flux --device cpu --smoke
+
+``--pipeline`` is one of sd3 (the default), flux, cogvideox and hunyuanvideo.
 """
 from __future__ import annotations
 
@@ -23,6 +25,39 @@ from repro_torch.core.orchestrator import Orchestrator
 from repro_torch.core.profiler import H100_SXM, Profiler
 from repro_torch.core.request import STAGES, Request
 from repro_torch.models import pipeline as pl
+
+# The (resolution, seconds) classes served on one chip: classes of the
+# reference's MIXES[pipeline]["light"] (core/workloads.py). The heavier ones
+# (flux at 2048-4096 px, cogvideox at 720 px or past 2 s, hunyuanvideo at
+# 720 px or past 1 s) are not served yet.
+REQUESTS = {
+    "sd3": ((512, 0.0), (1024, 0.0), (1536, 0.0)),
+    "flux": ((512, 0.0), (1024, 0.0)),
+    "cogvideox": ((480, 2.0),),
+    "hunyuanvideo": ((540, 1.0),),
+}
+
+
+def smoke_requests(pipeline: str) -> tuple:
+    """REQUESTS[pipeline] scaled down for the SMOKE configs: an eighth of the
+    side, half the seconds (the videos keep two or more latent frames)."""
+    return tuple((res // 8, sec / 2) for res, sec in REQUESTS[pipeline])
+
+
+@torch.no_grad()
+def warm(pipe: pl.Pipeline, requests: Sequence[Request]) -> None:
+    """Run each (resolution, seconds, prompt length) class of ``requests``
+    once, untimed, with one denoising step, so that the first calls at each
+    shape (library plan choice, allocator growth) fall outside the stage
+    times ``serve`` reports."""
+    dev = pipe.dit.x_in.device
+    gen = _device.generator(dev, 0)
+    for res, sec, cond_len in dict.fromkeys((r.resolution, r.seconds, r.cond_len)
+                                            for r in requests):
+        toks = torch.zeros((1, cond_len), dtype=torch.long, device=dev)
+        pl.generate(pipe, toks, res, sec, generator=gen, num_steps=1)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
 
 
 def serve(cfg: pl.PipelineConfig, requests: Sequence[Request], device=None, seed: int = 0,
@@ -87,7 +122,8 @@ def serve(cfg: pl.PipelineConfig, requests: Sequence[Request], device=None, seed
                 for s in STAGES:
                     r.stage_done[s] = done
                 records[index[r.rid]] = {
-                    "rid": r.rid, "resolution": r.resolution, "batch": len(batch),
+                    "rid": r.rid, "resolution": r.resolution, "seconds": r.seconds,
+                    "batch": len(batch),
                     "output": out[j * frames:(j + 1) * frames],
                     "stage_ms": stage_ms,
                     "predicted_ms": {s: prof.stage_time(r, s, chips[s]) * 1e3 for s in STAGES},
@@ -103,13 +139,17 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     import repro_torch.configs as C
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--pipeline", default="sd3", choices=list(C.PIPELINE_IDS))
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
-    ap.add_argument("--smoke", action="store_true", help="the reduced sd3 pipeline")
+    ap.add_argument("--smoke", action="store_true", help="the reduced same-family pipeline")
     args = ap.parse_args(argv)
-    cfg = C.get_smoke("sd3") if args.smoke else C.get("sd3")
-    res = (64, 128, 256) if args.smoke else (512, 1024, 1536)
-    for rec in serve(cfg, [Request(cfg.name, r) for r in res], device=args.device):
-        print(f"res={rec['resolution']} out={tuple(rec['output'].shape)} "
+    cfg = C.get_smoke(args.pipeline) if args.smoke else C.get(args.pipeline)
+    classes = smoke_requests(args.pipeline) if args.smoke else REQUESTS[args.pipeline]
+    reqs = [Request(cfg.name, res, sec) for res, sec in classes]
+    pipe = pl.build(cfg, args.device)
+    warm(pipe, reqs)
+    for rec in serve(cfg, reqs, device=args.device, pipe=pipe):
+        print(f"res={rec['resolution']} s={rec['seconds']} out={tuple(rec['output'].shape)} "
               f"stage_ms={ {s: round(v, 3) for s, v in rec['stage_ms'].items()} } "
               f"decision={rec['decision']}")
 

@@ -13,6 +13,7 @@ import time
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
+import torch
 
 from repro_torch import device as _device
 from repro_torch.models import transformer
@@ -48,6 +49,24 @@ def serve(cfg: ModelConfig, requests: Sequence[GenRequest], device=None, seed: i
              "group_size": r.group_size} for r in requests]
 
 
+@torch.no_grad()
+def warm(model: transformer.Transformer, requests: Sequence[GenRequest]) -> None:
+    """One prefill and one decode step, untimed, at each padded group shape
+    ``serve`` will give ``requests`` (groups of ``MAX_BATCH`` in order, caches
+    of the same length), so that the first calls at each shape fall outside
+    the prefill and decode times it reports."""
+    dev = model.embed.device
+    max_len = max(r.prompt.shape[-1] + r.max_new for r in requests)
+    for i in range(0, len(requests), MAX_BATCH):
+        group = requests[i:i + MAX_BATCH]
+        length = max(r.prompt.shape[-1] for r in group)
+        tokens = torch.zeros((len(group), length), dtype=torch.long, device=dev)
+        logits, caches, offset = model.prefill(tokens, max_len)
+        model.decode_step(tokens[:, -1:], caches, offset)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
 def requests_from_seed(vocab_size: int, n: int, lengths: Sequence[int], max_new: int,
                        seed: int = 0) -> List[GenRequest]:
     """``n`` requests with prompt lengths uniform in [lengths[0], lengths[1]]
@@ -74,8 +93,10 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     cfg = C.get_smoke(args.arch) if args.smoke else C.get(args.arch)
     lengths = (4, 16) if args.smoke else (256, 2048)
     reqs = requests_from_seed(cfg.vocab_size, args.requests, lengths, args.max_new)
+    model = transformer.build(cfg, args.device)
+    warm(model, reqs)
     t0 = time.perf_counter()
-    recs = serve(cfg, reqs, device=args.device)
+    recs = serve(cfg, reqs, device=args.device, model=model)
     dt = time.perf_counter() - t0
     toks = sum(len(r["tokens"]) for r in recs)
     print(f"arch={cfg.name}: served {len(recs)} requests, {toks} tokens in {dt:.2f} s")

@@ -69,6 +69,25 @@ def test_flash_attention_kernel_at_tile_edges_on_card(cuda, l, d, causal):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("l,h,d,causal", [
+    (1101, 24, 128, False), (4173, 24, 128, False),     # flux's DiT at 512 and 1024 px
+    (7277, 48, 64, False),                              # cogvideox's at 480 px x 2 s
+    (4433, 24, 128, False),                             # hunyuanvideo's at 540 px x 1 s
+    (77, 32, 128, True),                                # hunyuanvideo's causal encoder
+])
+def test_flash_attention_kernel_at_the_diffusion_serving_shapes_on_card(cuda, l, h, d, causal):
+    """The shapes the flux, cogvideox and hunyuanvideo serve gives K1; the
+    plain version goes eight heads at a time (48 heads of f32 scores at
+    L=7277 would take 10 GB)."""
+    q, k, v = (t.to(cuda, torch.bfloat16) for t in _qkv(l + h, 1, l, l, h, d))
+    got = tfa.flash_attention(q, k, v, causal=causal)
+    mask = ops.attention_mask(l, l, 0, cuda) if causal else None
+    want = torch.cat([ref.attention_ref(q[:, :, i:i + 8], k[:, :, i:i + 8], v[:, :, i:i + 8],
+                                        mask) for i in range(0, h, 8)], dim=2)
+    _assert_attention_close(got, want)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("lq,lkv,h,d,window,softcap", [
     (100, 300, 4, 64, 0, 0.0), (1, 1810, 4, 128, 0, 0.0),     # q_offset > 0
     (300, 300, 2, 64, 130, 0.0),                               # a window across tiles
@@ -108,10 +127,11 @@ def test_flash_attention_kernel_reads_strided_views_of_a_fused_projection(cuda, 
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("d", [1536, 3072])         # sd3's DiT width; the other three's
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, BF16_TOL)])
-def test_adaln_rmsnorm_kernel_matches_plain_on_card(cuda, dtype, tol):
-    x = torch.randn(2, 333, 1536, device=cuda).to(dtype)
-    mod = (torch.randn(2, 6, 1536, device=cuda) * 0.1).to(dtype)
+def test_adaln_rmsnorm_kernel_matches_plain_on_card(cuda, dtype, tol, d):
+    x = torch.randn(2, 333, d, device=cuda).to(dtype)
+    mod = (torch.randn(2, 6, d, device=cuda) * 0.1).to(dtype)
     got = tar.adaln_rmsnorm(x, mod[:, 0], mod[:, 1])
     want = ref.adaln_rmsnorm_ref(x, mod[:, 0], mod[:, 1])
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)

@@ -1,4 +1,6 @@
-"""The port's models against the JAX package on the sd3 SMOKE config, on the CPU.
+"""The port's models against the JAX package on each pipeline's SMOKE config,
+on the CPU: sd3, flux, cogvideox and hunyuanvideo (whose encoder is causal,
+4 query heads over 2 KV heads).
 
 Weights come from the JAX package's seeded init through
 ``repro_torch.convert.from_jax``; inputs and noise are made with numpy. Both
@@ -29,10 +31,11 @@ def _np_tree(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
 
 
-@pytest.fixture(scope="module")
-def smoke():
-    """SMOKE sd3 params with non-zero AdaLN modulation, as JAX and as numpy."""
-    jcfg, tcfg = JC.get_smoke("sd3"), TC.get_smoke("sd3")
+@pytest.fixture(scope="module", params=TC.PIPELINE_IDS)
+def smoke(request):
+    """SMOKE params of one pipeline with non-zero AdaLN modulation, as JAX
+    and as the port's pipeline."""
+    jcfg, tcfg = JC.get_smoke(request.param), TC.get_smoke(request.param)
     params = jpl.init(jcfg, jax.random.PRNGKey(0))
     rng = np.random.default_rng(0)
     dit = dict(params["diffuse"])
@@ -49,9 +52,10 @@ def smoke():
     return jcfg, tcfg, params, pipe
 
 
-def test_configs_carry_the_same_values():
+@pytest.mark.parametrize("pipeline", TC.PIPELINE_IDS)
+def test_configs_carry_the_same_values(pipeline):
     for getter in ("get", "get_smoke"):
-        j, t = getattr(JC, getter)("sd3"), getattr(TC, getter)("sd3")
+        j, t = getattr(JC, getter)(pipeline), getattr(TC, getter)(pipeline)
         for part in ("encoder", "dit", "decoder"):
             jd = dataclasses.asdict(getattr(j, part))
             td = dataclasses.asdict(getattr(t, part))
@@ -60,8 +64,8 @@ def test_configs_carry_the_same_values():
                     assert str(v).split(".")[-1] == jnp.dtype(jd[k]).name
                 else:
                     assert v == jd[k], (getter, part, k)
-        assert (j.num_steps, j.max_cond_len, j.is_video, j.name) == \
-               (t.num_steps, t.max_cond_len, t.is_video, t.name)
+        assert (j.num_steps, j.max_cond_len, j.is_video, j.name, j.source) == \
+               (t.num_steps, t.max_cond_len, t.is_video, t.name, t.source)
 
 
 def test_encoder_matches_jax(smoke):
