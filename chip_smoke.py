@@ -28,6 +28,14 @@ Phases:
   5b. the same for flux (512 and 1024 px, 4 steps), cogvideox (480 px x 2 s,
      6 steps) and hunyuanvideo (540 px x 1 s, 6 steps), one pipeline at a
      time, each freed before the next is built;
+  5c. print each served request's stage times beside the profiler's
+     predictions under ``H100_SXM`` (fitted to such readings by
+     ``python -m repro_torch.launch.calibrate``), write them to
+     ``chiprun_out/stage_times.json``, and fail if a fitted Diffuse reading
+     leaves [0.7, 1.3] x its prediction; measure the host constants the
+     profiler takes from this machine (a pinned 512 MiB host-to-device copy,
+     an NCCL communicator's build at world size 1, one dispatch round) and
+     print each beside its constant;
   6. hold K3 (the gated linear-attention scan) against its plain version at
      every shape and layout the LLM serve phase gives it, at the reference's
      kernel-test shapes, at the decay floor (where it must also give the same
@@ -43,7 +51,13 @@ Phases:
      logits after 4 decode steps;
   8. serve eight requests (prompts of 256..2048 tokens, 32 new tokens, 4 per
      group) on full-width, full-depth rwkv6-3b and then zamba2-1.2b through
-     ``repro_torch.launch.serve_llm.serve``, counting the kernels' launches.
+     ``repro_torch.launch.serve_llm.serve``, counting the kernels' launches;
+  9. run the simulated H100 cluster through ``repro_torch.launch.serve.main``
+     for each pipeline on the dynamic workload over 600 s, trident and B1-B6,
+     at 128 chips and at 16 (with the rate scaled to the same load per
+     chip), printing each result, writing them to ``chiprun_out/cluster.json``,
+     and failing if a second trident run of one cell differs in any
+     deterministic field.
 
 Every counted serve run (phases 5, 5b and 8) follows one untimed run at
 each of its shapes, so its stage times hold no first-call cost. K1 is also
@@ -471,10 +485,11 @@ def check_cut(torch, C, pl, name: str):
     return out
 
 
-def serve_pipeline_phase(torch, C, pl, ops, quickstart, Request, name: str, tag: str) -> dict:
+def serve_pipeline_phase(torch, C, pl, ops, quickstart, Request, name: str, tag: str):
     """Build pipeline ``name`` on the card from a seed, fill its modulation,
     run each served shape once untimed, then serve its requests
-    (quickstart.REQUESTS) counting the kernels' launches; returns them."""
+    (quickstart.REQUESTS) counting the kernels' launches; returns them and
+    one stage-time reading per request and stage."""
     cfg = C.get(name)
     t0 = time.perf_counter()
     pipe = pl.build(cfg, "cuda", seed=0)
@@ -515,9 +530,11 @@ def serve_pipeline_phase(torch, C, pl, ops, quickstart, Request, name: str, tag:
           flush=True)
     if launches != want:
         raise RuntimeError(f"{name}: kernel launches {launches}, expected {want}")
+    readings = [{"pipeline": name, "resolution": rec["resolution"], "seconds": rec["seconds"],
+                 "stage": s, "ms": rec["stage_ms"][s]} for rec in recs for s in "EDC"]
     del pipe, recs
     torch.cuda.empty_cache()
-    return launches
+    return launches, readings
 
 
 def llm_requests(serve_llm, cfg):
@@ -766,6 +783,190 @@ def serve_llm_phase(torch, C, tf, ops, serve_llm, arch: str) -> dict:
     return launches
 
 
+def out_path(name: str) -> str:
+    """A file under the checkout's chiprun_out/ for output too long to print."""
+    d = os.path.join(ROOT, "chiprun_out")
+    os.makedirs(d, exist_ok=True)
+    return os.path.join(d, name)
+
+
+def calibration_phase(readings: list) -> None:
+    """Each served request's stage time beside the profiler's prediction
+    under H100_SXM; fails if a fitted Diffuse reading leaves the band."""
+    from repro_torch.core.profiler import H100_SXM
+    from repro_torch.launch import calibrate
+    with open(out_path("stage_times.json"), "w") as f:
+        json.dump(readings, f, indent=1)
+    for row in calibrate.table(H100_SXM, readings):
+        print(f"[5c] {row['pipeline']} {row['resolution']}px {row['seconds']:g}s "
+              f"{row['stage']}: measured {row['ms']:.2f} ms, predicted "
+              f"{row['predicted_ms']:.2f} ms, measured / predicted "
+              f"{row['measured_over_predicted']:.3f}"
+              + (" (fitted)" if row["fitted"] else ""), flush=True)
+    print(f"[5c] stage readings {json.dumps(readings)}", flush=True)
+    bad = calibrate.outside_band(H100_SXM, readings)
+    if bad:
+        raise RuntimeError(f"Diffuse readings outside {calibrate.BAND} x the H100_SXM "
+                           f"prediction: {bad}")
+
+
+def h2d_bandwidth(torch, nbytes: int = 512 * 2 ** 20, reps: int = 5) -> float:
+    """Bytes/s of the best of ``reps`` copies of a pinned host buffer to the card."""
+    src = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    dst = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+    dst.copy_(src, non_blocking=True)
+    torch.cuda.synchronize()
+    best = math.inf
+    for _ in range(reps):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        dst.copy_(src, non_blocking=True)
+        e1.record()
+        torch.cuda.synchronize()
+        best = min(best, e0.elapsed_time(e1) / 1e3)
+    del src, dst
+    return nbytes / best
+
+
+def nccl_build_s(torch) -> float:
+    """Seconds to build an NCCL communicator at world size 1 and finish its
+    first all-reduce: a lower bound on a group's build across GPUs."""
+    import socket
+    import torch.distributed as dist
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", world_size=1,
+                            rank=0)
+    try:
+        x = torch.ones(1, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dist.all_reduce(x)
+        torch.cuda.synchronize()
+        took = time.perf_counter() - t0
+        if x.item() != 1.0:
+            raise RuntimeError(f"NCCL all-reduce at world size 1 gave {x.item()}")
+    finally:
+        dist.destroy_process_group()
+    return took
+
+
+def dispatch_round_s(C, quickstart, Request, rounds: int = 20) -> tuple:
+    """Median host seconds of one Dispatcher.dispatch round as the served
+    path makes it (one pending request on the one-chip plan, a fresh
+    dispatcher), over every served class; and, for scale, the median round
+    of a 128-chip flux plan with 64 pending requests of its dynamic trace."""
+    from repro_torch.core import workloads
+    from repro_torch.core.dispatcher import Dispatcher
+    from repro_torch.core.orchestrator import Orchestrator
+    from repro_torch.core.profiler import H100_SXM, Profiler
+
+    def median_round(prof, plan, pending) -> float:
+        idle = set(range(plan.num_units))
+        free = {g: 0.0 for g in idle}
+        times = []
+        for _ in range(rounds):
+            disp = Dispatcher(prof)
+            t0 = time.perf_counter()
+            if not disp.dispatch(pending, plan, idle, free, 0.0):
+                raise RuntimeError("a dispatch round placed no request")
+            times.append(time.perf_counter() - t0)
+        return sorted(times)[len(times) // 2]
+
+    served = []
+    for name in PIPELINES:
+        prof = Profiler(C.get(name), hw=H100_SXM)
+        reqs = [Request(name, res, sec) for res, sec in quickstart.REQUESTS[name]]
+        for r in reqs:
+            r.deadline = 2.5 * prof.pipeline_time(r)
+        plan = Orchestrator(prof, num_chips=1).generate(reqs)
+        served += [median_round(prof, plan, [r]) for r in reqs]
+    prof = Profiler(C.get("flux"), hw=H100_SXM)
+    trace = workloads.make_trace("flux", "dynamic", 600.0, prof)
+    cluster = median_round(prof, Orchestrator(prof, num_chips=128).generate(trace[:64]),
+                           trace[:64])
+    return sorted(served)[len(served) // 2], cluster
+
+
+def host_constants_phase(torch, C, quickstart, Request) -> dict:
+    """Measure on this machine what sets H100_SXM's host constants, and
+    print each beside the constant."""
+    from repro_torch.core.profiler import H100_SXM as hw
+    bw = h2d_bandwidth(torch)
+    build = nccl_build_s(torch)
+    served, cluster = dispatch_round_s(C, quickstart, Request)
+    out = {"host_bw": bw, "comm_group_init": build, "dispatch_overhead": served,
+           "dispatch_round_128_chips": cluster}
+    print(f"[5c] pinned host-to-device copy of 512 MiB: {bw / 1e9:.2f} GB/s "
+          f"(H100_SXM.host_bw {hw.host_bw / 1e9:.2f} GB/s)", flush=True)
+    print(f"[5c] NCCL communicator build + first all-reduce at world size 1: "
+          f"{build * 1e3:.2f} ms, a lower bound (H100_SXM.comm_group_init "
+          f"{hw.comm_group_init * 1e3:.2f} ms)", flush=True)
+    print(f"[5c] one Dispatcher.dispatch round, served path: {served * 1e3:.4f} ms "
+          f"(H100_SXM.dispatch_overhead {hw.dispatch_overhead * 1e3:.4f} ms); 128-chip "
+          f"flux plan, 64 pending: {cluster * 1e3:.3f} ms", flush=True)
+    print(f"[5c] inter-node bandwidth: H100_SXM.inter_node_bw "
+          f"{hw.inter_node_bw / 1e9:.2f} GB/s (ConnectX-7 data sheet, not measured)",
+          flush=True)
+    return out
+
+
+# phase 9's cells: chip counts, and the dynamic workload's duration
+CLUSTER_CHIPS = (128, 16)
+CLUSTER_DURATION = 600.0
+SCHEDULERS = ("B1", "B2", "B3", "B4", "B5", "B6")
+
+
+def cluster_phase() -> list:
+    """The simulated H100 cluster through ``launch.serve.main``; a second
+    trident run of each cell must give the same deterministic fields."""
+    import contextlib
+    import dataclasses
+    import io
+    from repro_torch.core import workloads
+    from repro_torch.launch import serve
+    rows = []
+    for name in PIPELINES:
+        for chips in CLUSTER_CHIPS:
+            # the same load per chip as the workload's 128-chip rate
+            rate = workloads.RATES[name] * chips / 128
+            argv = ["--pipeline", name, "--workload", "dynamic", "--duration",
+                    str(CLUSTER_DURATION), "--chips", str(chips), "--rate", repr(rate)]
+            t0 = time.perf_counter()
+            text = io.StringIO()
+            with contextlib.redirect_stdout(text):
+                results = serve.main(argv + ["--baselines", ",".join(SCHEDULERS)])
+            wall = time.perf_counter() - t0
+            for line in text.getvalue().splitlines():
+                print(f"[9] {chips} chips: {line}", flush=True)
+            with contextlib.redirect_stdout(io.StringIO()):
+                again = serve.main(argv)[0]
+            first = dataclasses.asdict(results[0])
+            second = dataclasses.asdict(again)
+            first.pop("solver_ms")
+            second.pop("solver_ms")
+            if first != second:
+                diff = sorted(k for k in first if first[k] != second[k])
+                raise RuntimeError(f"{name} at {chips} chips: a second trident run differs "
+                                   f"in {diff}")
+            for r in results:
+                row = {"pipeline": name, "chips": chips, "rate": rate,
+                       "scheduler": r.scheduler, "oom": r.oom, "n_requests": r.n_requests,
+                       "n_finished": r.n_finished, "slo_attainment": r.slo_attainment,
+                       "mean_latency": r.mean_latency, "p95_latency": r.p95_latency,
+                       "placement_switches": max(0, len(r.placement_switches) - 1),
+                       "vr_histogram": r.vr_histogram, "solver_ms": r.solver_ms,
+                       "sched_wakeups": r.sched_wakeups}
+                print(f"[9] {json.dumps(row)}", flush=True)
+                rows.append(row)
+            print(f"[9] {name} at {chips} chips: 7 schedulers in {wall:.2f} s of host time, "
+                  f"trident repeated bit-equal", flush=True)
+    with open(out_path("cluster.json"), "w") as f:
+        json.dump(rows, f, indent=1)
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -807,10 +1008,13 @@ def main() -> int:
         print(f"[4] two-layer {name} cut, card vs CPU: {json.dumps(cut)} "
               f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
-    by_path = {}
+    by_path, readings = {}, []
     for name in PIPELINES:
-        by_path[name] = serve_pipeline_phase(torch, C, pl, ops, quickstart, Request, name,
-                                             "5" if name == "sd3" else "5b")
+        by_path[name], got = serve_pipeline_phase(torch, C, pl, ops, quickstart, Request, name,
+                                                  "5" if name == "sd3" else "5b")
+        readings += got
+    calibration_phase(readings)
+    host_constants_phase(torch, C, quickstart, Request)
 
     check_ssm_scan(torch, ref, ss, gen, records,
                    [(arch, LLM_BATCH, l, C.get(arch).resolved_ssm_heads, arch == "rwkv6-3b",
@@ -826,6 +1030,10 @@ def main() -> int:
 
     for arch in LLM_ARCHS:
         by_path[arch] = serve_llm_phase(torch, C, tf, ops, serve_llm, arch)
+
+    t0 = time.perf_counter()
+    cluster_phase()
+    print(f"[9] cluster phase done in {time.perf_counter() - t0:.1f} s", flush=True)
 
     kernels = []
     for name, source, replaces in (

@@ -210,6 +210,26 @@ class Dispatcher:
 
     # -- unit selection ---------------------------------------------------------
 
+    @staticmethod
+    def select_units(plan: PlacementPlan, ptype: str, k: int,
+                     idle_units: set) -> Optional[Tuple[int, ...]]:
+        """k idle units of placement ``ptype`` within one node (intra-machine
+        constraint §6.2); contiguous-first for link locality.  The baselines
+        and trident's ablations select units through this."""
+        upn = plan.units_per_node
+        by_node: Dict[int, List[int]] = {}
+        for g in plan.units_of_type(ptype):
+            if g in idle_units:
+                by_node.setdefault(g // upn, []).append(g)
+        # node id as total tie-break: insertion is already ascending-node
+        # (units_of_type walks unit ids), so this is byte-neutral but makes
+        # the equal-count order explicit rather than stability-dependent
+        for node, units in sorted(by_node.items(),
+                                  key=lambda kv: (-len(kv[1]), kv[0])):
+            if len(units) >= k:
+                return tuple(sorted(units)[:k])
+        return None
+
     def _aux_units(self, plan: PlacementPlan, stage: str, k: int,
                    idle_units: set, free_at: Dict[int, float], tau: float
                    ) -> Tuple[int, ...]:
@@ -275,7 +295,7 @@ class Dispatcher:
             return tuple(units[:k]) if len(units) >= k else None
 
         # grants in reward order; equal rewards keep the solver's order
-        for ri, opt in sorted(choices.items(), key=lambda kv: -kv[1].reward):
+        for ri, opt in sorted(choices.items(), key=lambda kv: -kv[1].reward):  # detlint: ignore[DET004] choices is solver-walk-ordered; equal-reward order is BENCH-byte-frozen
             req = reqs[ri]
             prim = primary_of_vr(opt.dim)
             units = _take(prim, opt.usage)

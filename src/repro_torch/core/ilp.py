@@ -67,7 +67,7 @@ def _greedy(options: Sequence[Sequence[Option]], budgets: List[int],
     chosen: Dict[int, Option] = {}
     total = 0.0
     if seed:
-        for r, o in seed.items():
+        for r, o in seed.items():  # detlint: ignore[DET001] warm-start dict is solver-insertion-ordered; admission order is the algorithm
             if o.usage <= rem[o.dim]:
                 chosen[r] = o
                 rem[o.dim] -= o.usage

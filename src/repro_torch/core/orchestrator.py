@@ -40,10 +40,11 @@ class Orchestrator:
 
     # -- service rates (v_pi) ---------------------------------------------------
 
-    def _service_rates(self, reqs: Sequence[Request], vr: int) -> Dict[str, float]:
-        """Requests/s per replica for the primary and auxiliaries of type vr,
-        from the profiler (the reference lets measured Monitor rates take
-        precedence; the Monitor is not ported yet)."""
+    def _service_rates(self, reqs: Sequence[Request], vr: int,
+                       measured: Optional[Dict[str, float]] = None
+                       ) -> Dict[str, float]:
+        """Requests/s per replica for the primary and auxiliaries of type vr.
+        Measured Monitor rates take precedence; the profiler seeds bootstrap."""
         prim = primary_of_vr(vr)
         sample = [r for r in reqs] or [Request(self.prof.cfg.name, 512)]
 
@@ -57,11 +58,16 @@ class Orchestrator:
                     tot += self.prof.stage_time(r, s, ks)
             return tot / len(sample)
 
-        return {
+        rates = {
             "prim": 1.0 / max(avg_time(prim), 1e-9),
             "auxE": 1.0 / max(avg_time("E"), 1e-9),
             "auxC": 1.0 / max(avg_time("C"), 1e-9),
         }
+        if measured:
+            for key, pi in (("prim", prim), ("auxE", E), ("auxC", C)):
+                if measured.get(pi, 0.0) > 0.0:
+                    rates[key] = measured[pi]
+        return rates
 
     # -- Appendix C.1: Split() -----------------------------------------------------
 
@@ -134,10 +140,10 @@ class Orchestrator:
                         break
                 counts[prim] = want - need
         # fix total
-        drift = total - sum(counts.values())
+        drift = total - sum(counts.values())  # detlint: ignore[DET001] int unit counts: exact
         if drift > 0:
             # surplus units go to the largest bucket
-            t = max(counts, key=lambda t: counts[t])
+            t = max(counts, key=lambda t: counts[t])  # detlint: ignore[DET004] counts is split-ordered; tie winner is BENCH-byte-frozen
             counts[t] += drift
         elif drift < 0:
             # shed units largest-bucket-first.  A single lump subtraction
@@ -147,9 +153,9 @@ class Orchestrator:
             # last unit while it is the only primary left.
             for _ in range(-drift):
                 pick = None
-                n_prim = sum(c for t, c in counts.items()
+                n_prim = sum(c for t, c in counts.items()  # detlint: ignore[DET001] int unit counts: exact
                              if t in PRIMARY_PLACEMENTS)
-                for t in sorted(counts, key=lambda t: -counts[t]):
+                for t in sorted(counts, key=lambda t: -counts[t]):  # detlint: ignore[DET004] equal-count shed order = insertion order; BENCH-byte-frozen
                     if counts[t] <= 0:
                         continue
                     if t in PRIMARY_PLACEMENTS and n_prim <= 1:
@@ -168,7 +174,8 @@ class Orchestrator:
         placements = placements[:total]
         while len(placements) < total:
             placements.append(order[0] if order else EDC)
-        return PlacementPlan(placements, units_per_node=upn)
+        return PlacementPlan(placements, unit_size=self.prof.k_min,
+                             units_per_node=upn)
 
     # -- Algorithm 2 main -----------------------------------------------------------
 
@@ -182,8 +189,13 @@ class Orchestrator:
         return all(self.prof.unit_param_bytes(s) + hw.mem_reserve <= hw.hbm_bytes
                    for s in "EDC")
 
-    def generate(self, reqs: Sequence[Request]) -> Optional[PlacementPlan]:
-        """Algorithm 2.  Returns ``None`` when no feasible placement exists.
+    def generate(self, reqs: Sequence[Request],
+                 measured_rates: Optional[Dict[str, float]] = None
+                 ) -> Optional[PlacementPlan]:
+        """Algorithm 2.  Returns ``None`` when no feasible placement exists —
+        the same contract ``Scheduler.initial_placement`` exposes, so both
+        bootstrap and re-placement callers handle infeasibility uniformly
+        (the simulator reports OOM; ``maybe_replace`` keeps the old plan).
 
         VR-type proportions weight each request by its unit-time footprint
         (the reference's "demand" mode, its default) rather than counting
@@ -201,7 +213,7 @@ class Orchestrator:
             k = self.prof.optimal_degree(r, "D")
             w = self.prof.stage_time(r, "D", k * self.prof.k_min) * k
             opt[self.opt_vr(r)] += w
-        total = sum(opt.values())
+        total = sum(opt.values())  # detlint: ignore[DET001] Counter keyed in sample order: insertion-ordered
         counts: Dict[str, int] = Counter()
         # lines 3-4: N_t proportional to OptVR distribution
         n_assigned = 0
@@ -217,7 +229,7 @@ class Orchestrator:
         for vr in range(4):
             if n_by_vr[vr] <= 0:
                 continue
-            rates = self._service_rates(sample, vr)
+            rates = self._service_rates(sample, vr, measured_rates)
             for ptype, c in self.split(n_by_vr[vr], vr, rates).items():
                 counts[ptype] += c
         # line 7

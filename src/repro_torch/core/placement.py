@@ -41,6 +41,7 @@ class PlacementPlan:
     pipeline tags, unit lending and elastic decommissioning are not ported.
     """
     placements: List[str]                 # index = unit id
+    unit_size: int = 1                    # chips per unit (App. E.2 MP fold)
     units_per_node: int = 8               # scheduling units per 8-chip node
 
     def __post_init__(self):
@@ -50,7 +51,11 @@ class PlacementPlan:
     def num_units(self) -> int:
         return len(self.placements)
 
-    def _index(self) -> Tuple[Dict[str, List[int]], Dict[str, FrozenSet[int]]]:
+    def node_of(self, unit: int) -> int:
+        return unit // self.units_per_node
+
+    def _index(self) -> Tuple[Dict[str, List[int]], Dict[str, FrozenSet[int]],
+                              FrozenSet[int]]:
         """Lazy unit indices by placement type (plans are immutable after
         construction): these lookups run on every scheduler wake-up."""
         idx = self.__dict__.get("_idx")
@@ -58,8 +63,10 @@ class PlacementPlan:
             by_type: Dict[str, List[int]] = {}
             for g, p in enumerate(self.placements):
                 by_type.setdefault(p, []).append(g)
+            primary = frozenset(g for g, p in enumerate(self.placements)
+                                if p in PRIMARY_PLACEMENTS)
             idx = self.__dict__["_idx"] = (
-                by_type, {p: frozenset(gs) for p, gs in by_type.items()})
+                by_type, {p: frozenset(gs) for p, gs in by_type.items()}, primary)
         return idx
 
     def units_of_type(self, ptype: str) -> List[int]:
@@ -69,6 +76,11 @@ class PlacementPlan:
         """``units_of_type`` as a frozenset, for set intersections with the
         idle set on the dispatch path."""
         return self._index()[1].get(ptype, frozenset())
+
+    @property
+    def primary_units(self) -> FrozenSet[int]:
+        """Units whose placement carries the D stage."""
+        return self._index()[2]
 
     def count_of_type(self, ptype: str) -> int:
         return len(self.units_of_type(ptype))

@@ -6,8 +6,9 @@ and bytes come from the port's own modules built on the ``meta`` device, so
 they are exact and allocate nothing. The hardware is a named, frozen
 ``Hardware`` set passed to ``Profiler``: this package defines ``H100_SXM``.
 Its rates are the data sheet's; its efficiency knobs (``mfu``,
-``mfu_conv``, ``seq_mfu_knee``) and host costs are starting values, not yet
-calibrated on the card.
+``seq_mfu_knee``, ``mfu_conv``) are fitted to stage times measured on one
+H100 (``python -m repro_torch.launch.calibrate``), and its host costs are
+measured on the card's machine (``chip_smoke.py``).
 
 Calibration targets (validated against the reference in the tests):
   * Diffuse scales well with SP at high resolution, poorly at low (Fig. 3);
@@ -40,15 +41,33 @@ class Hardware:
     mfu_conv: float              # conv stacks' efficiency
     seq_mfu_knee: int            # per-chip tokens below which MFU degrades
     dispatch_overhead: float     # s, per-dispatch CPU scheduling cost
+    inter_node_bw: float         # chip-to-chip bytes/s across nodes
+    host_bw: float               # host<->device staging bytes/s
+    comm_group_init: float       # s, lazy (non-hot-set) communicator build
 
 
-# NVIDIA H100 SXM (data sheet): 989 TFLOP/s dense bf16, 3.35 TB/s HBM3, 80 GB,
-# NVLink 900 GB/s. The reserve (CUDA context, library workspaces), the
-# efficiency knobs and the host cost are not yet calibrated on the card.
+# NVIDIA H100 SXM. Data sheet: 989 TFLOP/s dense bf16, 3.35 TB/s HBM3, 80 GB,
+# NVLink 900 GB/s; inter-node, one ConnectX-7 NIC of 400 Gb/s per GPU in an
+# HGX H100 node. The reserve (CUDA context, library workspaces) is an
+# estimate. The rest is from one chip run of ``chip_smoke.py`` on an NVIDIA
+# H100 80GB HBM3 at 700.00 W, each stage on one chip after an untimed run at
+# its shape:
+#   mfu, seq_mfu_knee: least squares on log(predicted / measured) over the
+#     Diffuse stage of sd3 at 1024 and 1536 px, flux at 512 and 1024 px,
+#     cogvideox 480 px x 2 s and hunyuanvideo 540 px x 1 s (the knee at its
+#     lower bound: no fall-off on one chip down to 1101 tokens; SP > 1 is
+#     not measured);
+#   mfu_conv: the same over the image Decode readings (sd3, flux);
+#   dispatch_overhead: the host time of one Dispatcher.dispatch round on
+#     the served path (0.0811 ms);
+#   host_bw: a pinned 512 MiB host-to-device copy (51.51 GB/s);
+#   comm_group_init: an NCCL communicator's build and first all-reduce at
+#     world size 1 (528.81 ms), a lower bound on a group across GPUs.
 H100_SXM = Hardware(
     name="H100-SXM", peak_flops=989e12, hbm_bw=3.35e12, link_bw=900e9,
-    hbm_bytes=80 * 10 ** 9, mem_reserve=2 ** 30, mfu=0.5, mfu_conv=0.12,
-    seq_mfu_knee=384, dispatch_overhead=0.004)
+    hbm_bytes=80 * 10 ** 9, mem_reserve=2 ** 30, mfu=0.6279, mfu_conv=0.3761,
+    seq_mfu_knee=0, dispatch_overhead=8.11e-5, inter_node_bw=400e9 / 8,
+    host_bw=51.51e9, comm_group_init=0.52881)
 
 # SP degrees in scheduling units; those above one node's worth are the
 # reference's cross-node SP, which is not ported, so they are never chosen
@@ -73,11 +92,13 @@ class StageModelInfo:
 class Profiler:
     """Cost/memory model for one diffusion pipeline."""
 
-    def __init__(self, cfg: pipe_lib.PipelineConfig, hw: Hardware = H100_SXM):
+    def __init__(self, cfg: pipe_lib.PipelineConfig, hw: Hardware = H100_SXM,
+                 force_k_min: Optional[int] = None):
         self.cfg = cfg
         self.hw = hw
         self.info = self._stage_infos(cfg)
-        self.k_min = self._compute_k_min()
+        # force_k_min=1 models baselines that do not use the App.-E.2 MP fold
+        self.k_min = force_k_min if force_k_min else self._compute_k_min()
         # SP instances are intra-node in the paper (§6.2, a PCIe-box
         # constraint); on H100 nodes SP stays inside the 8-GPU NVLink domain
         self.max_degree_units = max(1, 8 // self.k_min)
@@ -261,6 +282,24 @@ class Profiler:
         self._batch_memo[key] = t
         return t
 
+    def optimal_batch(self, req: Request, stage: str, k_chips: int,
+                      cap: int = 8) -> int:
+        """Largest batch whose latency stays within 1.2x single (E.1)."""
+        key = (req.pipeline, req.resolution, req.seconds, req.cond_len,
+               stage, k_chips, "bs")
+        hit = self._deg_memo.get(key)
+        if hit is not None:
+            return hit
+        t1 = self.stage_time(req, stage, k_chips)
+        best = 1
+        bs = 2
+        while bs <= cap:
+            if self.batched_stage_time(req, stage, k_chips, bs) <= 1.2 * t1:
+                best = bs
+            bs *= 2
+        self._deg_memo[key] = best
+        return best
+
     def speedup(self, req: Request, stage: str, k_chips: int) -> float:
         return self.stage_time(req, stage, 1) / self.stage_time(req, stage, k_chips)
 
@@ -325,3 +364,21 @@ class Profiler:
             hit = self.peak_mem(req, ptype, k_units) <= self.hw.hbm_bytes
             self._fits_memo[key] = hit
         return hit
+
+    # -- inter-stage communication -------------------------------------------------
+
+    def comm_bytes(self, req: Request, edge: str) -> float:
+        """Q_ED / Q_DC tensor volumes (bf16)."""
+        if edge == "ED":
+            return req.cond_len * self.info["E"].d_model * 2.0
+        if edge == "DC":
+            return self.latent_tokens(req) * self.cfg.dit.latent_dim * 2.0
+        raise KeyError(edge)
+
+    def transfer_time(self, nbytes: float, intra_node: bool) -> float:
+        return nbytes / (self.hw.link_bw if intra_node else self.hw.inter_node_bw) + 2e-4
+
+    def stage_load_time(self, stage: str, via_host: bool) -> float:
+        """Adjust-on-Dispatch replica load (P2P peer vs pinned-host path)."""
+        per_chip = self.info[stage].bytes / self.k_min
+        return per_chip / (self.hw.host_bw if via_host else self.hw.link_bw) + 1e-3

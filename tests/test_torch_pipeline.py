@@ -44,7 +44,8 @@ REF_HW = tprof.Hardware(
     name="reference", peak_flops=jprof.PEAK_FLOPS, hbm_bw=jprof.HBM_BW, link_bw=jprof.ICI_BW,
     hbm_bytes=jprof.HBM_BYTES, mem_reserve=jprof.MEM_RESERVE, mfu=jprof.MFU,
     mfu_conv=jprof.MFU_CONV, seq_mfu_knee=jprof.SEQ_MFU_KNEE,
-    dispatch_overhead=jprof.DISPATCH_OVERHEAD)
+    dispatch_overhead=jprof.DISPATCH_OVERHEAD, inter_node_bw=jprof.DCN_BW,
+    host_bw=jprof.HOST_BW, comm_group_init=jprof.COMM_GROUP_INIT)
 
 PIPELINES = TC.PIPELINE_IDS
 
@@ -295,6 +296,13 @@ def test_h100_profiler_has_no_tpu_constants():
                                                                     80 * 10 ** 9)
     tpu = {jprof.PEAK_FLOPS, jprof.HBM_BW, jprof.ICI_BW, jprof.HBM_BYTES}
     assert not tpu & {hw.peak_flops, hw.hbm_bw, hw.link_bw, hw.hbm_bytes}
+    # inter-node link: ConnectX-7, 400 Gb/s per GPU; the host link and the
+    # communicator build are measured on the card's machine
+    assert hw.inter_node_bw == 400e9 / 8
+    tpu_host = {jprof.DCN_BW, jprof.HOST_BW, jprof.COMM_GROUP_INIT, jprof.DISPATCH_OVERHEAD,
+                jprof.MFU, jprof.MFU_CONV, jprof.SEQ_MFU_KNEE}
+    assert not tpu_host & {hw.inter_node_bw, hw.host_bw, hw.comm_group_init,
+                           hw.dispatch_overhead, hw.mfu, hw.mfu_conv, hw.seq_mfu_knee}
     assert dataclasses.replace(hw, name="x") != hw
 
 
