@@ -5,14 +5,15 @@
 
 Phases:
   1. require a CUDA card; print its name and power limit; turn TF32 off;
-  2. build the Hopper kernels from ``src/repro_torch/csrc``, and print K1's
-     and K3's registers and spills per instantiation (from ptxas), and K1's
-     shared memory;
+  2. build the Hopper kernels from ``src/repro_torch/csrc``, and print K1's,
+     K2's and K3's registers and spills per instantiation (from ptxas), and
+     K1's shared memory;
   3. hold each kernel against its plain PyTorch version on the same CUDA
      tensors at every shape the serve phases give it (and the variant
      shapes of the reference's kernel tests, and for K1 the lengths on and
      beside its 128-row and 128-key tile edges, causal queries at the end of
-     a longer kv, a window across tiles and causal D=128), with kernel,
+     a longer kv, a window across tiles and causal D=128; for K2 float32 at
+     the served widths and batches > 1 with ragged blocks), with kernel,
      plain, library and bound times per shape (device times from CUDA-graph
      replays), each time's share of its bound and its ratio to the library
      call; at the serving shapes K1's check must also reject the output of
@@ -123,6 +124,11 @@ K1_BN = 128                    # K1's keys per KV tile: the padding of its ragge
 # kernel tests use the same form): bf16 outputs differ by an ulp or two of
 # rounding, f32 ones by the order of the sums
 K2_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+# K2 at batches > 1 and the served widths: a block's rows lie in one batch
+# row, each batch row ends in a ragged block (L is no multiple of the plan's
+# rows per block), and a block that read another batch row's modulation shows
+# (tests/test_torch_smoke_checks.py models that fault and the others)
+K2_BATCHED = ((2, 1101, 1536), (3, 333, 3072), (4, 333, 1536))
 # phase 4, bf16 card vs f32 CPU: the encoder's output by max |err| / max |ref|;
 # the DiT's output (eps) by rms(err) / rms(ref), where the CPU's own bf16 run
 # reads 0.5% and zeroing the attention moves it 4% (tests/test_torch_smoke_checks.py)
@@ -368,15 +374,26 @@ def check_flash_attention(torch, ops, ref, fa, gen, records, main):
     records["flash_attention"] = out
 
 
+def k2_check_shapes(main) -> list:
+    """(B, L, D, dtype) of every K2 check: each served (B, L, D) in bf16 (the
+    timed ones) and in float32, where K2's 1e-5 limit sees a sum of squares
+    that drops a lane's or a vector's share; K2_BATCHED in both; and the
+    reference's kernel-test shapes."""
+    import torch
+    served = list(dict.fromkeys(shape for _, shape in main))
+    shapes = [s + (torch.bfloat16,) for s in served] + [s + (torch.float32,) for s in served]
+    shapes += [(b, l, d, dt) for b, l, d in K2_BATCHED for dt in (torch.float32, torch.bfloat16)]
+    shapes += [(b, l, d, dt) for b, l, d in [(2, 100, 64), (1, 7, 128), (4, 256, 32)]
+               for dt in (torch.float32, torch.bfloat16)]
+    return shapes
+
+
 def check_adaln_rmsnorm(torch, ref, ar, gen, records, main):
     """``main``: (path, (B, L, D)) of every call shape the serve phases make."""
     dev = "cuda"
     out = []
     timed = {shape: path for path, shape in main}
-    shapes = [shape + (torch.bfloat16,) for shape in timed]
-    shapes += [(b, l, d, dt) for b, l, d in [(2, 100, 64), (1, 7, 128), (4, 256, 32)]
-               for dt in (torch.float32, torch.bfloat16)]
-    for b, l, d, dt in shapes:
+    for b, l, d, dt in k2_check_shapes(main):
         def make():
             x = torch.randn((b, l, d), generator=gen, device=dev).to(dt)
             # scale/shift as the DiT passes them: rows of a (B, 6, D) modulation
@@ -388,7 +405,8 @@ def check_adaln_rmsnorm(torch, ref, ar, gen, records, main):
         want = ref.adaln_rmsnorm_ref(x, s, t)
         name = str(dt).split(".")[-1]
         err, ok = agree(y, want, K2_TOL[name])
-        rec = {"shape": [b, l, d], "dtype": name, "max_abs_err": err, "tol": K2_TOL[name]}
+        rec = {"shape": [b, l, d], "dtype": name, "max_abs_err": err, "tol": K2_TOL[name],
+               "plan": ar.plan(b, l, d, dt)}
         if not torch.isfinite(y).all() or not ok:
             raise RuntimeError(f"adaln_rmsnorm disagrees with its plain version: {rec}")
         es = x.element_size()
@@ -407,6 +425,19 @@ def check_adaln_rmsnorm(torch, ref, ar, gen, records, main):
         print("K2 adaln_rmsnorm " + json.dumps(rec), flush=True)
         out.append(rec)
     records["adaln_rmsnorm"] = out
+
+
+def k2_build_report(_build) -> str:
+    """K2's registers and spills per instantiation: dtype x V (16-byte vectors
+    per lane)."""
+    out = ptxas_report(_build, r"adaln_rmsnorm_kernelI(f|13__nv_bfloat16)Li(\d+)E",
+                       ("dtype", "vectors"))
+    for info in out:
+        info["dtype"] = "float32" if info["dtype"] == "f" else "bfloat16"
+        info["vectors"] = int(info["vectors"])
+    if len(out) != 16:
+        raise RuntimeError(f"K2: {len(out)} instantiations in nvcc.log, expected 16")
+    return json.dumps(sorted(out, key=lambda r: (r["dtype"], r["vectors"])))
 
 
 def serving_shapes(C, llm_groups) -> tuple:
@@ -991,6 +1022,7 @@ def main() -> int:
     _build.library()
     print(f"[2] kernels built and loaded in {time.perf_counter() - t0:.1f} s", flush=True)
     print(f"[2] K1 ptxas: {k1_build_report(_build)}", flush=True)
+    print(f"[2] K2 ptxas: {k2_build_report(_build)}", flush=True)
     print(f"[2] K3 ptxas: {k3_build_report(_build)}", flush=True)
 
     gen = torch.Generator(device="cuda").manual_seed(0)

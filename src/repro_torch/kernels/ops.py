@@ -52,7 +52,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
 def adaln_rmsnorm(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor, *,
                   eps: float = 1e-6) -> torch.Tensor:
     """x: (B, L, D); scale/shift: (B, D)."""
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return ref.adaln_rmsnorm_ref(x, scale, shift, eps)
     out = _ar.adaln_rmsnorm(x, scale, shift, eps=eps)
     LAUNCHES["adaln_rmsnorm"] += 1

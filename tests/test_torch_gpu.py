@@ -129,12 +129,32 @@ def test_flash_attention_kernel_reads_strided_views_of_a_fused_projection(cuda, 
 @pytest.mark.gpu
 @pytest.mark.parametrize("d", [1536, 3072])         # sd3's DiT width; the other three's
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, BF16_TOL)])
-def test_adaln_rmsnorm_kernel_matches_plain_on_card(cuda, dtype, tol, d):
-    x = torch.randn(2, 333, d, device=cuda).to(dtype)
-    mod = (torch.randn(2, 6, d, device=cuda) * 0.1).to(dtype)
+@pytest.mark.parametrize("b,l", [(2, 333), (3, 1101), (4, 77), (5, 9)])
+def test_adaln_rmsnorm_kernel_matches_plain_on_card(cuda, dtype, tol, d, b, l):
+    """Each batch row has its own modulation row (rows of the DiT's (B, 6, D)
+    modulation) and ends in a ragged block where L is no multiple of the
+    plan's rows per block; a second call of the same signature takes the
+    remembered launch and gives the same bits."""
+    g = torch.Generator(device=cuda).manual_seed(b * l + d)
+    x = torch.randn((b, l, d), generator=g, device=cuda).to(dtype)
+    mod = (torch.randn((b, 6, d), generator=g, device=cuda) * 0.5).to(dtype)
     got = tar.adaln_rmsnorm(x, mod[:, 0], mod[:, 1])
     want = ref.adaln_rmsnorm_ref(x, mod[:, 0], mod[:, 1])
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    assert torch.equal(tar.adaln_rmsnorm(x, mod[:, 0], mod[:, 1]), got)
+
+
+@pytest.mark.gpu
+def test_adaln_rmsnorm_remembered_signature_still_checks_alignment(cuda):
+    buf = torch.randn(2 * 77 * 128 + 4, device=cuda)
+    mod = torch.randn((2, 6, 128), device=cuda)
+    x = buf[:2 * 77 * 128].view(2, 77, 128)
+    tar.adaln_rmsnorm(x, mod[:, 0], mod[:, 1])
+    shifted = buf[1:1 + 2 * 77 * 128].view(2, 77, 128)      # same signature, 4 bytes off
+    with pytest.raises(ValueError, match="aligned"):
+        tar.adaln_rmsnorm(shifted, mod[:, 0], mod[:, 1])
+    with pytest.raises(ValueError, match="aligned"):
+        tar.adaln_rmsnorm(x, buf[1:257].view(2, 128), mod[:, 1])
 
 
 @pytest.mark.gpu

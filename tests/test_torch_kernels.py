@@ -87,7 +87,7 @@ def test_flash_attention_ragged_matches_oracle(l, dtype):
 
 
 @pytest.mark.parametrize("b,l,d,rows", [(2, 100, 64, 32), (1, 7, 128, 256),
-                                        (4, 256, 32, 64)])
+                                        (4, 256, 32, 64), (2, 37, 1536, 16), (3, 11, 3072, 8)])
 def test_adaln_rmsnorm_matches_pallas(b, l, d, rows):
     rng = np.random.default_rng(4)
     x = rng.standard_normal((b, l, d)).astype(np.float32)

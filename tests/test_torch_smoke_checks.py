@@ -23,6 +23,7 @@ import pytest
 import torch
 
 import repro_torch.configs as C
+from repro_torch.kernels import adaln_rmsnorm as tar
 from repro_torch.kernels import ref
 from repro_torch.models import diffusion
 
@@ -322,3 +323,98 @@ def test_k3_limits_reject_the_rings_faults(fault, bonus):
     err, state_err, ok = smoke.scan_agree(got, ref.ssm_scan_ref(q, k, v, decay, u))
     print(f"K3 {fault} bonus={bonus}: max |err| {err:.3g}, state {state_err:.3g}")
     assert not ok, fault
+
+
+K2_FAULTS = ("dropped lane", "dropped vector", "stale modulation", "tail vector unwritten")
+
+
+def k2_model(x, scale, shift, eps=1e-6, fault=None):
+    """K2's arithmetic on the CPU, in f32, in the kernel's order
+    (csrc/adaln_rmsnorm.cu at ``tar.plan``'s instantiation): lane j of a row
+    chains the squares of its vectors j + i * lanes (i < V, elements in
+    order) by FMA, the row's lanes add their sums in a butterfly of shuffles,
+    r = rsqrt(sum / D + eps), and out = fma(x * r, 1 + scale, shift).
+    ``fault``: "dropped lane" (the last lane's sum left out), "dropped
+    vector" (the row's last vector left out of the sum, a mask one short),
+    "stale modulation" (the first block of each batch row after the first
+    reads the previous batch row's scale and shift), "tail vector unwritten"
+    (the row's last vector of out left as torch.empty found it: zeros)."""
+    b, l, d = x.shape
+    p = tar.plan(b, l, d, x.dtype)
+    lanes, nv, per_vec = p["lanes"], p["vectors"], 16 // x.element_size()
+    xf = x.float()
+    sq = torch.nn.functional.pad(xf, (0, lanes * nv * per_vec - d))
+    if fault == K2_FAULTS[1]:
+        sq[..., d - per_vec:d] = 0
+    sq = sq.reshape(b, l, nv, lanes, per_vec)
+    part = torch.zeros((b, l, lanes))
+    for i in range(nv):
+        for k in range(per_vec):
+            part = _fma(sq[:, :, i, :, k], sq[:, :, i, :, k], part)
+    if fault == K2_FAULTS[0]:
+        part[..., -1] = 0
+    idx = torch.arange(lanes)
+    off = lanes // 2
+    while off:
+        part = part + part[..., idx ^ off]
+        off //= 2
+    r = torch.rsqrt(part[..., :1] / d + eps)
+    s, t = scale.float()[:, None, :].repeat(1, l, 1), shift.float()[:, None, :].repeat(1, l, 1)
+    if fault == K2_FAULTS[2]:
+        rows = p["rows_per_block"]
+        s[1:, :rows], t[1:, :rows] = s[:-1, :rows].clone(), t[:-1, :rows].clone()
+    out = _fma(xf * r, 1.0 + s, t)
+    if fault == K2_FAULTS[3]:
+        out[..., d - per_vec:] = 0
+    return out.to(x.dtype)
+
+
+def _k2_inputs(b, l, d, dtype, seed=7):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((b, l, d), generator=g).to(dtype)
+    mod = (torch.randn((b, 6, d), generator=g) * 0.1).to(dtype)
+    return x, mod[:, 0], mod[:, 1]
+
+
+def _k2_check(got, x, s, t):
+    name = str(x.dtype).split(".")[-1]
+    return smoke.agree(got, ref.adaln_rmsnorm_ref(x, s, t), smoke.K2_TOL[name])
+
+
+@pytest.mark.parametrize("d", [1536, 3072])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,l", [(1, 101), (3, 45)])
+def test_k2_limits_pass_the_kernels_order_of_sums(b, l, d, dtype):
+    """K2's limits pass its f32 arithmetic in its own order at the served
+    widths, with the plain version's rounding to bf16 where it applies."""
+    x, s, t = _k2_inputs(b, l, d, dtype)
+    err, ok = _k2_check(k2_model(x, s, t), x, s, t)
+    print(f"K2 order model {b}x{l}x{d} {dtype}: max |err| {err:.3g}")
+    assert ok
+
+
+@pytest.mark.parametrize("fault", K2_FAULTS[:2])
+@pytest.mark.parametrize("d", [1536, 3072])
+def test_k2_float32_check_rejects_a_sum_that_drops_a_share(fault, d):
+    """A sum of squares short of one lane's or one vector's share scales a
+    row by 1/sqrt(1 - share): on average ~1.6% for a lane at D = 1536, 0.1-0.3%
+    for a vector. The bf16 limit (2e-2 + 2e-2 |plain|) need not see that (it is
+    printed); the float32 check at the same width (1e-5) rejects it."""
+    for dtype in (torch.bfloat16, torch.float32):
+        x, s, t = _k2_inputs(1, 101, d, dtype)
+        err, ok = _k2_check(k2_model(x, s, t, fault=fault), x, s, t)
+        print(f"K2 {fault} D={d} {dtype}: max |err| {err:.3g}, passes: {ok}")
+    assert not ok, fault
+
+
+@pytest.mark.parametrize("fault", K2_FAULTS[2:])
+@pytest.mark.parametrize("b,l,d", smoke.K2_BATCHED)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k2_checks_reject_a_stale_modulation_row_and_an_unwritten_tail(fault, b, l, d, dtype):
+    """At chip_smoke's batched shapes both limits reject a block that reads
+    the previous batch row's modulation and a row whose last vector is never
+    stored."""
+    x, s, t = _k2_inputs(b, l, d, dtype)
+    err, ok = _k2_check(k2_model(x, s, t, fault=fault), x, s, t)
+    print(f"K2 {fault} {b}x{l}x{d} {dtype}: max |err| {err:.3g}")
+    assert not ok
