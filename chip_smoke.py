@@ -58,7 +58,16 @@ Phases:
      at 128 chips and at 16 (with the rate scaled to the same load per
      chip), printing each result, writing them to ``chiprun_out/cluster.json``,
      and failing if a second trident run of one cell differs in any
-     deterministic field.
+     deterministic field;
+  10. run the simulated H100 fleet through
+     ``repro_torch.launch.serve_fleet.main`` on the host: the shared-cluster
+     mix flip (sd3 + flux + cogvideox, 128 chips at the reference's load per
+     chip, 600 s) under the static, proportional, adaptive and predictive
+     fleet schedulers; the diurnal predictive scenario at its CI size cut to
+     480 s (adaptive, predictive); the cross-lane batching burst storm at its
+     CI size (batching off, on).  One ``[10] {json}`` row per mode, written to
+     ``chiprun_out/fleet.json``; a second run of one mode of each scenario
+     must give every ``FleetResult`` field the same, or the phase fails.
 
 Every counted serve run (phases 5, 5b and 8) follows one untimed run at
 each of its shapes, so its stage times hold no first-call cost. K1 is also
@@ -998,6 +1007,81 @@ def cluster_phase() -> list:
     return rows
 
 
+# phase 10's scenarios: serve_fleet's arguments, its own pool (what
+# --rate-scale is relative to), the trace's seconds, and the mode run twice.
+# The predictive scenario's CI size runs 960 s; cut to 480 s (four periods
+# of 120 s) because its 960 s took 385 s of host time on the card's machine
+# (its ILP solves grow with the backlog), over phase 10's 180 s
+FLEET_SCENARIOS = (
+    ("shared", ["--modes", "static,proportional,adaptive,predictive"], 512, 600.0,
+     "adaptive"),
+    ("predictive", ["--smoke"], 128, 480.0, "predictive"),
+    ("cross_batch", ["--smoke"], 64, 600.0, "batching"),
+)
+FLEET_CHIPS = {"shared": 128}     # else the scenario's CI-sized pool
+
+
+def same_result(first, second, what: str) -> None:
+    """Fail unless two runs gave every field of the result the same."""
+    import dataclasses
+    a, b = dataclasses.asdict(first), dataclasses.asdict(second)
+    if a != b:
+        diff = sorted(k for k in a if a[k] != b[k])
+        raise RuntimeError(f"{what}: a second run differs in {diff}")
+
+
+def fleet_row(run, chips: int, duration: float) -> dict:
+    r = run.result
+    return {"scenario": run.scenario, "mode": run.mode, "chips": chips,
+            "duration_s": duration,
+            "slo_pct": r.slo_attainment * 100, "mean_s": r.mean_latency,
+            "p95_s": r.p95_latency, "goodput_rps": r.goodput,
+            "repartitions": len(r.repartitions) - 1,
+            "predictive_repartitions": r.predictive_repartitions,
+            "prewarm_units": r.prewarm_units,
+            "cross_lane_merges": r.cross_lane_merges,
+            "wakeups": r.sched_wakeups, "host_s": run.wall_s}
+
+
+def fleet_phase(chips=None, duration=None) -> list:
+    """The simulated H100 fleet through ``launch.serve_fleet.main``, each
+    scenario at ``chips`` (default: its own, the load per chip kept) and
+    ``duration`` seconds (default: its own); a second run of one mode of
+    each scenario must give the same ``FleetResult``."""
+    import contextlib
+    import io
+    from repro_torch.launch import serve_fleet
+    rows = []
+    t_all = time.perf_counter()
+    for scenario, argv, own_chips, seconds, rerun in FLEET_SCENARIOS:
+        n = chips or FLEET_CHIPS.get(scenario, own_chips)
+        # a pool holds at least one node of 8 chips per pipeline
+        n = max(n, 8 * len(serve_fleet.SCENARIO_PIPELINES[scenario]))
+        seconds = duration or seconds
+        argv = ["--scenario", scenario] + argv + [
+            "--chips", str(n), "--rate-scale", repr(n / own_chips),
+            "--duration", repr(seconds)]
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            runs = serve_fleet.main(argv)
+            again = serve_fleet.main(argv + ["--modes", rerun])
+        for line in text.getvalue().splitlines():
+            print(f"[10] {line}", flush=True)
+        first = next(r for r in runs if r.mode == rerun)
+        same_result(first.result, again[0].result, f"{scenario}/{rerun}")
+        for run in runs:
+            row = fleet_row(run, n, seconds)
+            print(f"[10] {json.dumps(row)}", flush=True)
+            rows.append(row)
+        print(f"[10] {scenario} at {n} chips: {len(runs)} modes, {rerun} "
+              f"repeated bit-equal", flush=True)
+    print(f"[10] fleet phase: {time.perf_counter() - t_all:.1f} s of host time",
+          flush=True)
+    with open(out_path("fleet.json"), "w") as f:
+        json.dump(rows, f, indent=1)
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1066,6 +1150,8 @@ def main() -> int:
     t0 = time.perf_counter()
     cluster_phase()
     print(f"[9] cluster phase done in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    fleet_phase()
 
     kernels = []
     for name, source, replaces in (

@@ -1,5 +1,4 @@
-"""TridentServe core, as ported so far: counterpart of ``repro/core`` for one
-pipeline.
+"""TridentServe core, as ported so far: counterpart of ``repro/core``.
 
 * ``placement``    — placement types, Virtual Replicas (Table 3), plans
 * ``orchestrator`` — Dynamic Orchestrator (Algorithm 2, Appendix C.1)
@@ -18,13 +17,19 @@ pipeline.
 * ``trident``      — the full TridentServe scheduler (Algorithm 1)
 * ``baselines``    — B1-B6 (§8.1, Appendix D.2)
 * ``workloads``    — Steady/Dynamic/Proprietary traces (Table 5, Fig. 9)
+                     and the fleet's heterogeneous traces
+* ``fleet``        — shared-cluster co-serving of heterogeneous pipelines:
+                     one placement plan for the whole cluster, chip budgets
+                     re-partitioned with the live traffic mix
+* ``forecast``     — the demand forecaster behind predictive re-partitioning
 
-The fleet, unit lending, forecasting and elastic capacity wait.
+Unit lending, elastic capacity, the array-backed fast path and cross-node SP
+wait.
 """
-from repro_torch.core import (baselines, clock, dispatcher, ilp, monitor,
-                              orchestrator, placement, profiler, request,
-                              runtime, simulator, trident, workloads)
+from repro_torch.core import (baselines, clock, dispatcher, fleet, forecast,
+                              ilp, monitor, orchestrator, placement, profiler,
+                              request, runtime, simulator, trident, workloads)
 
-__all__ = ["baselines", "clock", "dispatcher", "ilp", "monitor",
-           "orchestrator", "placement", "profiler", "request", "runtime",
-           "simulator", "trident", "workloads"]
+__all__ = ["baselines", "clock", "dispatcher", "fleet", "forecast", "ilp",
+           "monitor", "orchestrator", "placement", "profiler", "request",
+           "runtime", "simulator", "trident", "workloads"]

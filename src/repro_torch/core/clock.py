@@ -19,13 +19,15 @@
 * ``Lane`` — one pipeline's serving stack (scheduler + engine + Monitor +
   pending queue + result bookkeeping), with exactly the attribute surface
   schedulers are written against (``pending`` / ``engine`` / ``monitor`` /
-  ``new_arrivals`` / ``fail_request_oom``).
+  ``new_arrivals`` / ``fail_request_oom``).  ``Simulator`` is a one-lane
+  subclass; ``FleetSimulator`` (core/fleet.py) holds one Lane per served
+  pipeline and drives the same kernel, registering its own wake sources
+  (fleet demand windows, the predictive scheduler's forecast events).
 * ``Scheduler`` / ``PendingSet`` — the scheduler interface and the
   O(1)-removal pending queue.
 
-Counterpart of ``repro/core/clock.py`` for one pipeline: the fleet's merged
-completion events, the lending and elastic fields of ``Lane`` and the
-array-backed lane state are not ported yet.
+Counterpart of ``repro/core/clock.py``: the lending and elastic fields of
+``Lane`` and the array-backed lane state are not ported yet.
 """
 from __future__ import annotations
 
@@ -36,7 +38,7 @@ from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
 from repro_torch.core.monitor import Monitor
 from repro_torch.core.request import Request
-from repro_torch.core.runtime import RuntimeEngine
+from repro_torch.core.runtime import EngineStats, RuntimeEngine
 
 # A wake source answers: "earliest future time you could change state?"
 # (None = never / not currently armed).  Sources are consulted after every
@@ -49,6 +51,17 @@ WakeSource = Callable[[float], Optional[float]]
 # request, not one per dispatch decision.  Heap order never reaches the
 # members: (finish, seq) is already unique.
 Completion = Tuple[float, int, str, str, str, float, Tuple[Request, ...]]
+
+# Merged completion events (fleet cross-lane batching): a fused stage run
+# spanning several lanes is pushed ONCE with this sentinel in the lane
+# field.  Member contract: ``members`` holds every request of every fused
+# decision (corequests included), sorted by (pipeline, rid) — so a simulator
+# draining the event can (a) route ``on_completion`` once per participating
+# lane (the sorted-unique pipelines of the members) and (b) count per-
+# request SLO finishes via each member's own ``pipeline``, in an order
+# independent of PYTHONHASHSEED.  The single-pipeline Simulator never sees
+# the sentinel.
+MERGED_LANE = "*merged*"
 
 
 @dataclasses.dataclass
@@ -286,6 +299,11 @@ class Lane:
         self.vr_histogram: Dict[int, int] = {}
         self.throughput: Dict[int, int] = {}
         self.placement_log: List[Tuple[float, Dict[str, int]]] = []
+        self._stats_base = EngineStats()   # stats of retired engines
+        # the engine's own plan size (fleet re-partitions set it); a unit id
+        # at or above it would be a borrowed loan slot, which only unit
+        # lending creates
+        self.base_units: int = 0
 
     # -- queue ----------------------------------------------------------------
 
@@ -305,11 +323,19 @@ class Lane:
     def record(self, dec, times: Dict[str, Tuple[float, float]],
                clock: EventClock) -> None:
         """Push one decision's stage completions onto the kernel heap and
-        update the lane's result accounting."""
+        update the lane's result accounting.
+
+        Stages in ``dec.xl_skip`` (cross-lane fused runs) still stamp
+        ``stage_done`` for the batch members, but push no per-lane event —
+        the fleet batcher already pushed ONE merged event (``MERGED_LANE``)
+        for the whole fused launch."""
         members = (dec.request,) + tuple(dec.corequests)
+        skip = getattr(dec, "xl_skip", ())
         for s, (start, fin) in times.items():
             for req in members:
                 req.stage_done[s] = fin
+            if s in skip:
+                continue
             su = (dec.d_units if s == "D" else
                   dec.e_units if s == "E" else dec.c_units)
             ptype = self.engine.plan.placements[su[0]]
@@ -326,27 +352,73 @@ class Lane:
             self.throughput[int(t // 60)] = (
                 self.throughput.get(int(t // 60), 0) + 1)
 
-    def step(self, tau: float, clock: EventClock,
-             apply_replacement: Callable[..., None]) -> None:
-        """One scheduler step for this lane: placement-switch check, then
-        dispatch, then each decision's engine timing, completion events and
-        pending-queue removal, in order.  ``apply_replacement(new_plan,
-        tau)`` is the simulator's way a fresh plan reaches the engine."""
+    def decide(self, tau: float,
+               apply_replacement: Callable[..., None]) -> Sequence:
+        """Placement-switch check + one scheduler tick; returns the
+        decisions *without* executing them.  The fleet's cross-lane batcher
+        rides this split: every lane decides first, the batcher plans fused
+        stage runs across the decisions, then each lane executes
+        (``execute_decisions``).  Lanes own disjoint engines, so deciding
+        all lanes before executing any is equivalent to the interleaved
+        ``step`` — which remains the plain composition of the two."""
         new_plan = self.sched.maybe_replace(self, tau)
         if new_plan is not None:
             apply_replacement(new_plan, tau)
             self.placement_log.append((tau, new_plan.type_histogram()))
-        for dec in self.sched.tick(self, tau):
+        return self.sched.tick(self, tau)
+
+    def execute_decisions(self, decisions: Sequence, tau: float,
+                          clock: EventClock) -> None:
+        """Execute a tick's decisions in order: engine timing, completion
+        events, pending-queue removal.
+
+        Decisions marked ``xl_hold`` (cross-lane batching's E-hold: the
+        auxiliary encode unit is backlogged) execute only if the fleet
+        batcher fused them this tick (``xl_efused``); otherwise they are
+        skipped entirely — nothing is reserved and the request stays in
+        the pending pool for a later tick's fusion or native dispatch."""
+        for dec in decisions:
+            if getattr(dec, "xl_hold", False) and \
+                    getattr(dec, "xl_efused", None) is None:
+                continue
             times = self.engine.execute(dec, tau)
             self.record(dec, times, clock)
             self.pending.remove(dec.request)
             for co in dec.corequests:
                 self.pending.remove(co)
 
+    def step(self, tau: float, clock: EventClock,
+             apply_replacement: Callable[..., None]) -> None:
+        """One scheduler step for this lane: placement-switch check, then
+        dispatch.  ``apply_replacement(new_plan, tau)`` is the caller's way
+        a fresh plan reaches the engine (the fleet also updates the cluster
+        plan)."""
+        self.execute_decisions(self.decide(tau, apply_replacement), tau,
+                               clock)
+
+    # -- engine-stats banking (survives fleet re-partitions) -------------------
+
+    def bank_engine_stats(self) -> None:
+        """Fold the outgoing engine's counters into the lane total before a
+        re-partition replaces it."""
+        if self.engine is None:
+            return
+        for f in dataclasses.fields(EngineStats):
+            setattr(self._stats_base, f.name,
+                    getattr(self._stats_base, f.name)
+                    + getattr(self.engine.stats, f.name))
+
+    def engine_stats(self) -> Dict[str, float]:
+        total = dataclasses.asdict(self._stats_base)
+        if self.engine is not None:
+            for k, v in dataclasses.asdict(self.engine.stats).items():
+                total[k] += v
+        return total
+
 
 def replace_capable(scheduler: Scheduler) -> bool:
     """Monitor-window boundary wake-ups only matter to schedulers that can
-    actually re-place — the simulator skips registering the source otherwise."""
+    actually re-place — the simulators skip registering the source otherwise."""
     return type(scheduler).maybe_replace is not Scheduler.maybe_replace
 
 

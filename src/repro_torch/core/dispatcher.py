@@ -9,12 +9,23 @@ stage co-resides (E merges with D; C takes a subset of D's units), otherwise
 route to an idle/earliest-free auxiliary replica at the profiled optimal
 parallelism.
 
-Counterpart of ``repro/core/dispatcher.py`` for one pipeline: the fleet's
-``CrossLaneBatcher``, ILP aggregation, incremental re-solve, unit lending and
-elastic draining are not ported yet.
+``CrossLaneBatcher`` extends the dispatch step one level up (fleet-level
+dynamic batching, ``FleetConfig.cross_lane_batching``): when the fleet's
+per-lane dispatchers produce auxiliary E/C stage runs in two or more lanes
+whose units share a ``(placement_type, stage)`` shape, the batcher merges
+them into ONE batched launch on a single host lane's units.  Member
+selection is a grouped ILP with multi-dimensional columns
+(``ilp.solve_grouped``), capped by the profiler's batch-latency curve; the
+fused run is charged as one merged completion event (``clock.MERGED_LANE``)
+whose members span lanes.
+
+Counterpart of ``repro/core/dispatcher.py``: the incremental re-solve, the
+decode offload onto borrowed units (unit lending) and elastic draining are
+not ported yet.
 """
 from __future__ import annotations
 
+import bisect
 import dataclasses
 import heapq
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -64,10 +75,17 @@ class DispatchDecision:
 
 class Dispatcher:
     def __init__(self, profiler: Profiler, max_batch: int = 64,
-                 solver_time_cap: float = 0.05):
+                 solver_time_cap: float = 0.05, aggregate: bool = False):
+        """``aggregate`` turns on multiplicity-aware ILP aggregation:
+        pending requests with identical option lists (same class, same
+        reward state) enter the solver once with a count instead of N
+        times (see ``ilp.solve_grouped``).  Off by default so the
+        single-pipeline dispatch path keeps its behavior; the fleet layer
+        (core/fleet.py) turns it on."""
         self.prof = profiler
         self.max_batch = max_batch
         self.solver_time_cap = solver_time_cap
+        self.aggregate = aggregate
         self.last_solve_stats: Dict[str, float] = {}
         # previous solve's surviving (dim, usage) per request id — warm-starts
         # the ILP incumbent under steady load (requests pending across ticks)
@@ -208,6 +226,44 @@ class Dispatcher:
             options.append(opts)
         return options, budgets
 
+    def _solve_grouped(self, reqs: Sequence[Request],
+                       options: List[List[ilp.Option]], budgets: List[int]
+                       ) -> Tuple[Dict[int, ilp.Option], Dict[str, float]]:
+        """Multiplicity-aware solve: requests with identical option lists
+        form one group with a count.  Granted copies map back to the
+        group's members in deadline order (``reqs`` is deadline-sorted),
+        best-reward option first, so the earliest-deadline member gets the
+        fastest grant."""
+        groups: Dict[Tuple[ilp.Option, ...], int] = {}
+        members: List[List[int]] = []
+        gopts: List[List[ilp.Option]] = []
+        for ri, opts in enumerate(options):
+            if not opts:
+                continue
+            key = tuple(opts)
+            g = groups.get(key)
+            if g is None:
+                g = groups[key] = len(gopts)
+                gopts.append(opts)
+                members.append([])
+            members[g].append(ri)
+        warm: Dict[int, List[Tuple[int, int]]] = {}
+        for g, mem in enumerate(members):
+            seeds = [self._warm[reqs[ri].rid] for ri in mem
+                     if reqs[ri].rid in self._warm]
+            if seeds:
+                warm[g] = seeds
+        gsol = ilp.solve_grouped(gopts, budgets,
+                                 [len(mem) for mem in members],
+                                 time_cap=self.solver_time_cap, warm=warm)
+        choices: Dict[int, ilp.Option] = {}
+        for g, granted in gsol.alloc.items():
+            for ri, opt in zip(members[g], granted):
+                choices[ri] = opt
+        return choices, {"nodes": gsol.nodes, "optimal": gsol.optimal,
+                         "reward": gsol.reward, "n_solved": gsol.n_slots,
+                         "n_groups": len(gopts)}
+
     # -- unit selection ---------------------------------------------------------
 
     @staticmethod
@@ -266,33 +322,73 @@ class Dispatcher:
         idle_by_type = {t: len(idle_units & plan.type_set(t))
                         for t in PRIMARY_PLACEMENTS}
         options, budgets = self.build_options(reqs, tau, idle_by_type)
-        warm = {ri: self._warm[req.rid] for ri, req in enumerate(reqs)
-                if req.rid in self._warm}
-        sol = ilp.solve(options, budgets, time_cap=self.solver_time_cap, warm=warm)
-        choices = sol.choices
+        if self.aggregate:
+            choices, stats = self._solve_grouped(reqs, options, budgets)
+        else:
+            warm = {ri: self._warm[req.rid] for ri, req in enumerate(reqs)
+                    if req.rid in self._warm}
+            sol = ilp.solve(options, budgets, time_cap=self.solver_time_cap,
+                            warm=warm)
+            choices = sol.choices
+            stats = {"nodes": sol.nodes, "optimal": sol.optimal,
+                     "reward": sol.reward, "n_solved": len(reqs)}
         self._warm = {reqs[ri].rid: (opt.dim, opt.usage)
                       for ri, opt in choices.items()}
-        self.last_solve_stats = {"nodes": sol.nodes, "optimal": sol.optimal,
-                                 "reward": sol.reward, "n_solved": len(reqs),
-                                 "n_reqs": len(reqs)}
+        self.last_solve_stats = {**stats, "n_reqs": len(reqs)}
 
         decisions: List[DispatchDecision] = []
         avail = set(idle_units)
+        # Maintained unit pools: placement types partition the unit space
+        # and only primary grants consume from ``avail``, so each type's
+        # by-node map is built once per dispatch round (lazily, from the
+        # then-current ``avail``) and maintained across grants instead of
+        # walking every unit of the type on each grant.  Selection is
+        # ``select_units``': the node with the most idle units of the type,
+        # the lowest node id on ties, and its lowest unit ids.
         upn = plan.units_per_node
+        pools: Dict[str, Dict[int, List[int]]] = {}
+        # lazy max-heap per type over (-count, node): the top valid entry is
+        # the max-count node with the smallest node id.  Entries go stale
+        # when a node's count changes; they are popped (never trusted) once
+        # the stored count mismatches.
+        heaps: Dict[str, List[Tuple[int, int]]] = {}
+
+        def _pool(ptype: str) -> Dict[int, List[int]]:
+            by_node = pools.get(ptype)
+            if by_node is None:
+                by_node = pools[ptype] = {}
+                for g in plan.units_of_type(ptype):
+                    if g in avail:
+                        by_node.setdefault(g // upn, []).append(g)
+                h = heaps[ptype] = [(-len(u), nd) for nd, u in by_node.items()]
+                heapq.heapify(h)
+            return by_node
 
         def _take(ptype: str, k: int) -> Optional[Tuple[int, ...]]:
-            """k idle units of placement ``ptype`` within one node (the
-            intra-machine constraint of §6.2): the node with the most idle
-            units of the type, the lowest node id on ties, and its lowest
-            unit ids."""
-            by_node: Dict[int, List[int]] = {}
-            for g in plan.units_of_type(ptype):
-                if g in avail:
-                    by_node.setdefault(g // upn, []).append(g)
-            if not by_node:
+            by_node = _pool(ptype)
+            heap = heaps[ptype]
+            best, best_n = None, 0
+            while heap:
+                neg, node = heap[0]
+                if -neg == len(by_node[node]):
+                    best, best_n = node, -neg
+                    break
+                heapq.heappop(heap)   # stale count
+            if best_n < k:
                 return None
-            units = by_node[min(by_node, key=lambda nd: (-len(by_node[nd]), nd))]
-            return tuple(units[:k]) if len(units) >= k else None
+            units = by_node[best]
+            out = tuple(units[:k])
+            del units[:k]
+            heapq.heapreplace(heap, (k - best_n, best))
+            return out
+
+        def _give_back(ptype: str, units: Tuple[int, ...]) -> None:
+            by_node = _pool(ptype)
+            heap = heaps[ptype]
+            for g in units:
+                node = g // upn
+                bisect.insort(by_node[node], g)
+                heapq.heappush(heap, (-len(by_node[node]), node))
 
         # grants in reward order; equal rewards keep the solver's order
         for ri, opt in sorted(choices.items(), key=lambda kv: -kv[1].reward):  # detlint: ignore[DET004] choices is solver-walk-ordered; equal-reward order is BENCH-byte-frozen
@@ -316,8 +412,306 @@ class Dispatcher:
                 c_units = self._aux_units(plan, "C", kc, avail, free_at, tau)
             if not e_units or not c_units:
                 avail |= set(units)
+                _give_back(prim, units)
                 continue   # no auxiliary capacity -> undispatched this tick
             decisions.append(DispatchDecision(
                 request=req, vr_type=opt.dim, degree=opt.usage,
                 d_units=units, e_units=tuple(e_units), c_units=tuple(c_units)))
         return decisions
+
+
+class CrossLaneBatcher:
+    """Fleet-level cross-lane dynamic batching (``FleetConfig.cross_lane_batching``).
+
+    After every lane's dispatcher has produced its tick decisions (but
+    before any engine executes them), the batcher scans the fleet-wide
+    decision set for auxiliary E/C stage runs whose units share a
+    ``(stage, placement_type, unit_size)`` shape across two or more lanes,
+    and fuses each such group into ONE batched launch on a single *host*
+    lane's auxiliary units:
+
+    * **Member selection** is the ILP's multiplicity-aware aggregation with
+      the grouping key extended across lanes: each candidate run becomes a
+      grouped column with a *multi-dimensional* ``ilp.Option`` spanning the
+      shared batch-capacity dimension and its own lane's dimension
+      (``dim=(0, lane)``, ``usage=(b, b)``), so one ``solve_grouped`` call
+      packs the launch under both the fleet-wide batch cap and each lane's
+      own batch-curve cap.  Rewards are the native solo stage times the
+      fusion releases.
+    * **Batch cap** comes from the profiler's batch-latency curve
+      (``Profiler.optimal_batch``) unless ``max_batch`` overrides it.
+    * **Duration** charged is the *batched* stage time at the combined
+      batch size — conservatively the max over the member lanes' profiles —
+      on the host units only; every other member lane's native auxiliary
+      selection goes unused (that is the capacity the fusion pools).
+    * **Completion** is one merged event under the ``clock.MERGED_LANE``
+      sentinel whose members span lanes; the fleet simulator's drain loop
+      un-merges it (one ``on_completion`` per participating lane, per-member
+      finish accounting).
+
+    E-groups launch at plan time (E has no intra-tick dependency); C-groups
+    are deferred via ``dec.xl_cdefer`` and scheduled in :meth:`finalize`
+    once every lane's engine has executed and stamped ``stage_done["D"]``.
+
+    Only constructed when the fleet knob is on.  The reference's warm
+    grants across ticks (``incremental_ilp``) are not ported.
+    """
+
+    def __init__(self, max_batch: int = 0, solver_time_cap: float = 0.05):
+        self.max_batch = max_batch          # 0 = profiler batch-curve cap
+        self.solver_time_cap = solver_time_cap
+        self.merges = 0                     # fused launches charged
+        self.merged_requests = 0            # batch items across all fusions
+        # host units of un-drained fused launches: (host pid, unit) ->
+        # latest fused finish — what ``fused_busy`` answers from; entries
+        # are pruned lazily
+        self.inflight_hosts: Dict[Tuple[str, int], float] = {}
+
+    # -- candidate assembly ---------------------------------------------------
+
+    @staticmethod
+    def _units(dec: DispatchDecision, stage: str) -> Tuple[int, ...]:
+        return dec.e_units if stage == "E" else dec.c_units
+
+    def _collect(self, lane_decs) -> Dict[tuple, list]:
+        """Group fusable (lane, dec, stage) candidates by shape key.
+
+        The key is ``(stage, placement_type, unit_size)`` — the contract the
+        merged launch relies on: same stage weights resident, same replica
+        shape, same per-unit chip count.  Same placement_type but different
+        stage deliberately yields distinct keys (a ⟨C⟩-typed unit hosting a
+        warm E replica must not merge with a C run)."""
+        groups: Dict[tuple, list] = {}
+        for lane, decs in lane_decs:
+            plan = lane.engine.plan
+            for dec in decs:
+                for stage in getattr(dec, "xl_candidate", ()):
+                    units = self._units(dec, stage)
+                    if not units:
+                        continue
+                    key = (stage, plan.placements[units[0]], plan.unit_size)
+                    groups.setdefault(key, []).append((lane, dec))
+        return groups
+
+    # -- member selection (grouped ILP, cross-lane columns) -------------------
+
+    def _select(self, stage: str, per_lane: Dict[str, list]):
+        """Pick the fused member set for one shape group.
+
+        Returns ``(fused, host_lane, host_units, n_total, T)`` or ``None``
+        when no fusion spanning >= 2 lanes fits under the caps."""
+        # host = lane whose leading candidate's aux units free up earliest
+        # (its units carry the fused launch); deterministic pipeline tiebreak
+        host_pid = min(
+            sorted(per_lane),
+            key=lambda pid: (max(per_lane[pid][0][0].engine.units[g].free_at
+                                 for g in self._units(per_lane[pid][0][1], stage)),
+                             pid))
+        host, anchor = per_lane[host_pid][0]
+        host_units = self._units(anchor, stage)
+        k_chips = len(host_units) * host.prof.k_min
+        # per-lane batch caps from each profile's batch curve, at the HOST
+        # launch shape (that is where the fused run executes); a positive
+        # max_batch override replaces BOTH the shared and the per-lane curve
+        # caps (the operator is asserting a throughput/latency trade the
+        # 1.2x-single curve knee would refuse)
+        cap_of = {}
+        for pid, cands in per_lane.items():
+            rep = min(cands, key=lambda c: (c[1].request.deadline,
+                                            c[1].request.rid))[1].request
+            cap_of[pid] = (self.max_batch if self.max_batch > 0
+                           else cands[0][0].prof.optimal_batch(rep, stage,
+                                                               k_chips))
+        shared_cap = (self.max_batch if self.max_batch > 0
+                      else max(cap_of[p] for p in sorted(cap_of)))
+        b_anchor = anchor.batch
+        if shared_cap - b_anchor < 1:
+            return None            # no room to span a second lane
+        # grouped ILP: dim 0 = shared fleet batch budget, dims 1..L = lanes
+        lane_dim = {pid: i + 1 for i, pid in enumerate(per_lane)}
+        budgets = [shared_cap - b_anchor] + [
+            max(0, cap_of[pid] - (b_anchor if pid == host_pid else 0))
+            for pid in per_lane]
+        gindex: Dict[tuple, int] = {}
+        gopts: List[List[ilp.Option]] = []
+        counts: List[int] = []
+        gmembers: List[list] = []
+        for pid, cands in per_lane.items():
+            for lane, dec in cands:
+                if dec is anchor:
+                    continue
+                b = dec.batch
+                units = self._units(dec, stage)
+                # reward: native solo auxiliary time this member releases
+                saving = lane.prof.batched_stage_time(
+                    dec.request, stage, len(units) * lane.prof.k_min, b)
+                gkey = (lane_dim[pid], b, saving)
+                g = gindex.get(gkey)
+                if g is None:
+                    g = gindex[gkey] = len(gopts)
+                    gopts.append([ilp.Option(dim=(0, lane_dim[pid]),
+                                             usage=(b, b), reward=saving)])
+                    counts.append(0)
+                    gmembers.append([])
+                counts[g] += 1
+                gmembers[g].append((lane, dec))
+        if not gopts:
+            return None
+        sol = ilp.solve_grouped(gopts, budgets, counts,
+                                time_cap=self.solver_time_cap)
+        fused = [(host, anchor)]
+        for g in sorted(sol.alloc):
+            grants = sol.alloc[g]
+            # deadline-ordered un-merging: earliest-deadline members of the
+            # class take the granted slots
+            ordered = sorted(gmembers[g],
+                             key=lambda c: (c[1].request.deadline,
+                                            c[1].request.pipeline,
+                                            c[1].request.rid))
+            fused.extend(ordered[:len(grants)])
+        if len({lane.pipeline for lane, _ in fused}) < 2:
+            return None            # fusion must actually span lanes
+        n_total = sum(dec.batch for _, dec in fused)
+        # batched duration at the combined size: conservative max over the
+        # member lanes' profiles (sorted walk -> deterministic float max)
+        reps: Dict[str, Request] = {}
+        for lane, dec in fused:
+            cur = reps.get(lane.pipeline)
+            r = dec.request
+            if cur is None or (r.deadline, r.rid) < (cur.deadline, cur.rid):
+                reps[lane.pipeline] = r
+        by_lane = {lane.pipeline: lane for lane, _ in fused}
+        T = max(by_lane[pid].prof.batched_stage_time(reps[pid], stage,
+                                                     k_chips, n_total)
+                for pid in sorted(reps))
+        return fused, host, host_units, n_total, T
+
+    # -- fused launch scheduling ----------------------------------------------
+
+    @staticmethod
+    def _members(fused) -> Tuple[Request, ...]:
+        """All batch items of all fused decisions, in the merged event's
+        canonical (pipeline, rid) member order (detlint DET001: sorted
+        before any accumulation downstream)."""
+        return tuple(sorted(
+            (r for _, dec in fused
+             for r in (dec.request,) + tuple(dec.corequests)),
+            key=lambda r: (r.pipeline, r.rid)))
+
+    @staticmethod
+    def _charge_borrowed(host, host_units) -> None:
+        """A fused launch on a borrowed (unit-lending) host unit is charged
+        to the host lane's borrow ledger in the reference.  No unit is ever
+        on loan until lending is ported, so reaching one is a fault."""
+        if any(g >= host.base_units for g in host_units):
+            raise NotImplementedError(
+                "fused launch on a borrowed unit: unit lending is a later "
+                "slice of the port")
+
+    def _launch_e(self, fused, host, host_units, n_total: float, T: float,
+                  tau: float, clock) -> None:
+        from repro_torch.core.clock import MERGED_LANE
+        eng = host.engine
+        start = max(tau, max(eng.units[g].free_at for g in host_units))
+        start += eng._reinstance(host_units)
+        start += eng._prepare_stage("E", host_units, tau)
+        fin = start + T
+        eng._reserve(host_units, fin)
+        eng.stats.dispatches += 1
+        self._charge_borrowed(host, host_units)
+        ptype = eng.plan.placements[host_units[0]]
+        clock.push_completion(fin, MERGED_LANE, "E", ptype, T,
+                              self._members(fused))
+        self._note_inflight(host.pipeline, host_units, fin)
+        for lane, dec in fused:
+            dec.xl_efused = (start, fin, lane is host, host_units)
+            dec.xl_skip = tuple(getattr(dec, "xl_skip", ())) + ("E",)
+        self.merges += 1
+        self.merged_requests += n_total
+
+    def plan(self, lane_decs, tau: float, clock) -> list:
+        """Fuse this tick's cross-lane candidates.
+
+        ``lane_decs`` is the ordered ``(lane, decisions)`` list for every
+        lane, produced by ``Lane.decide`` *before* any lane executes.
+        E-groups are scheduled immediately (the fused E run depends on
+        nothing this tick); C-groups are returned for :meth:`finalize`
+        after the lanes' engines have stamped ``stage_done["D"]``."""
+        cgroups = []
+        groups = self._collect(lane_decs)
+        for key in sorted(groups):
+            stage = key[0]
+            per_lane: Dict[str, list] = {}
+            for lane, dec in groups[key]:
+                per_lane.setdefault(lane.pipeline, []).append((lane, dec))
+            if len(per_lane) < 2:
+                continue
+            picked = self._select(stage, per_lane)
+            if picked is None:
+                continue
+            fused, host, host_units, n_total, T = picked
+            if stage == "E":
+                self._launch_e(fused, host, host_units, n_total, T, tau, clock)
+            else:
+                for _, dec in fused:
+                    dec.xl_cdefer = True
+                    dec.xl_skip = tuple(getattr(dec, "xl_skip", ())) + ("C",)
+                cgroups.append((fused, host, host_units, n_total, T))
+        return cgroups
+
+    def finalize(self, cgroups: list, tau: float, clock) -> None:
+        """Schedule the deferred fused C launches.
+
+        Runs after every lane executed its decisions: each member's
+        ``stage_done["D"]`` now holds its decode finish, so the fused C
+        start is gated on the slowest member's latent push to the host
+        units (host-lane members use the engine's locality-aware push;
+        foreign members pay the two-step cross-lane path)."""
+        from repro_torch.core.clock import MERGED_LANE
+        for fused, host, host_units, n_total, T in cgroups:
+            eng = host.engine
+            ready = tau
+            for lane, dec in fused:
+                d_fin = dec.request.stage_done["D"]
+                nbytes = lane.prof.comm_bytes(dec.request, "DC")
+                if lane is host:
+                    dr = eng._push(nbytes, dec.d_units, host_units, d_fin)
+                else:
+                    dr = d_fin + lane.engine.push_cross(nbytes)
+                ready = max(ready, dr)
+            start = max(ready, max(eng.units[g].free_at for g in host_units))
+            start += eng._reinstance(host_units)
+            start += eng._prepare_stage("C", host_units, tau)
+            fin = start + T
+            eng._reserve(host_units, fin)
+            eng.stats.dispatches += 1
+            self._charge_borrowed(host, host_units)
+            members = self._members(fused)
+            for r in members:
+                r.stage_done["C"] = fin
+            ptype = eng.plan.placements[host_units[0]]
+            clock.push_completion(fin, MERGED_LANE, "C", ptype, T, members)
+            self._note_inflight(host.pipeline, host_units, fin)
+            self.merges += 1
+            self.merged_requests += n_total
+
+    # -- in-flight host tracking -----------------------------------------------
+
+    def _note_inflight(self, pid: str, host_units, fin: float) -> None:
+        for g in host_units:
+            key = (pid, g)
+            if fin > self.inflight_hosts.get(key, 0.0):
+                self.inflight_hosts[key] = fin
+
+    def fused_busy(self, pid: str, unit: int, tau: float) -> bool:
+        """Is a fused launch hosted on ``(pid, unit)`` still un-drained at
+        ``tau``?  A host unit inside a live ``MERGED_LANE`` event must not
+        change hands until the merge drains (the guard unit lending's
+        force-return consults); stale entries are pruned lazily."""
+        fin = self.inflight_hosts.get((pid, unit))
+        if fin is None:
+            return False
+        if fin <= tau:
+            del self.inflight_hosts[(pid, unit)]
+            return False
+        return True

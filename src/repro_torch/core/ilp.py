@@ -28,12 +28,22 @@ Refinements (all exactness-preserving):
     (dim, usage) choices, so the branch-and-bound starts near last tick's
     optimum and prunes far more aggressively under steady load.
 
-Counterpart of ``repro/core/ilp.py`` for its single-pipeline path: one budget
-dimension per option, no grouped solve and no dense-DP fast path.
+Multi-dimensional options (cross-lane batching): ``Option.dim``/``usage``
+may also be *parallel tuples*, one (dim, usage) pair per budget dimension
+the option consumes — the column shape the fleet's cross-lane batcher
+needs, where joining a fused launch consumes both the launch's shared
+batch-size budget and the member lane's own batch-curve cap.  The two
+kinds may mix in one instance; an all-scalar instance takes a leaner walk
+over the same nodes.  ``solve_grouped`` enters identical requests once with
+a count.
+
+Counterpart of ``repro/core/ilp.py``; its dense-DP fast path (``dp=True``,
+used only with ``incremental_ilp``) waits for the array-backed slice.
 """
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from typing import Dict, List, Optional, Sequence, Tuple
 
 # deterministic time->node translation for the anytime cap (~1.3M nodes/s on
@@ -44,10 +54,28 @@ NODES_PER_SECOND = 1_300_000
 
 @dataclasses.dataclass(frozen=True)
 class Option:
-    """One (type i, degree k) choice for a request."""
-    dim: int          # budget dimension (Virtual-Replica index)
-    usage: int        # units consumed
+    """One (type i, degree k) choice for a request.
+
+    ``dim``/``usage`` are plain ints for the dispatch column; a
+    multi-dimensional option (cross-lane batching) carries parallel tuples
+    instead — ``dim[j]``'s budget is charged ``usage[j]`` units."""
+    dim: object       # budget dimension (int) | parallel dims (Tuple[int, ...])
+    usage: object     # units consumed (int) | per-dim usages (Tuple[int, ...])
     reward: float
+
+
+def _spans(o: Option) -> Tuple[Tuple[int, int], ...]:
+    """Normalized ((dim, usage), ...) consumption pairs of one option."""
+    if isinstance(o.dim, tuple):
+        return tuple(zip(o.dim, o.usage))
+    return ((o.dim, o.usage),)
+
+
+def _usage_total(o: Option) -> int:
+    """Total units consumed across all of an option's budget dimensions."""
+    if isinstance(o.usage, tuple):
+        return sum(o.usage)
+    return o.usage
 
 
 @dataclasses.dataclass
@@ -56,6 +84,64 @@ class Solution:
     reward: float
     nodes: int
     optimal: bool
+
+
+@dataclasses.dataclass
+class GroupedSolution:
+    """Result of ``solve_grouped``: per-group granted options."""
+    alloc: Dict[int, List[Option]]   # group index -> one Option per copy
+    reward: float
+    nodes: int
+    optimal: bool
+    n_slots: int                     # expanded instance size actually solved
+
+
+def solve_grouped(options: Sequence[Sequence[Option]],
+                  budgets: Sequence[int], counts: Sequence[int],
+                  node_cap: int = 200_000, time_cap: float = 0.2,
+                  warm: Optional[Dict[int, Sequence[Tuple[int, int]]]] = None
+                  ) -> GroupedSolution:
+    """Multiplicity-aware dispatch ILP: group g enters once with a count.
+
+    ``options[g]`` is the option list shared by ``counts[g]`` identical
+    requests; up to ``counts[g]`` copies of group g may be granted (each
+    copy independently picks one option and consumes its usage).  Each
+    group is expanded only up to its *capacity bound*: every option
+    consumes at least one unit, so no solution grants more copies than
+    ``sum(budgets) // min_usage``.  The truncated members are
+    interchangeable with the kept ones, so the optimum is unchanged; the
+    expanded instance then reuses ``solve`` (whose identical-row symmetry
+    breaking collapses the remaining copies).  A cross-lane group is just
+    a group whose option spans more than one budget dimension; the
+    capacity bound uses the option's *total* usage.
+
+    ``warm`` maps group index -> (dim, usage) pairs granted to the group on
+    a previous solve; they seed the incumbent exactly like ``solve``'s.
+    """
+    total_budget = int(sum(budgets))
+    slot_group: List[int] = []           # expanded slot -> group index
+    slot_opts: List[Sequence[Option]] = []
+    warm_slots: Dict[int, Tuple[int, int]] = {}
+    for g, (opts, m) in enumerate(zip(options, counts)):
+        if not opts or m <= 0:
+            continue
+        min_use = max(1, min(_usage_total(o) for o in opts))
+        cap = min(int(m), total_budget // min_use)
+        seeds = list((warm or {}).get(g, ()))
+        for i in range(cap):
+            if i < len(seeds):
+                warm_slots[len(slot_group)] = tuple(seeds[i])
+            slot_group.append(g)
+            slot_opts.append(opts)
+    sol = solve(slot_opts, budgets, node_cap=node_cap, time_cap=time_cap,
+                warm=warm_slots or None)
+    alloc: Dict[int, List[Option]] = {}
+    for si, o in sol.choices.items():
+        alloc.setdefault(slot_group[si], []).append(o)
+    for granted in alloc.values():
+        granted.sort(key=lambda o: (-o.reward, _usage_total(o)))
+    return GroupedSolution(alloc=alloc, reward=sol.reward, nodes=sol.nodes,
+                           optimal=sol.optimal, n_slots=len(slot_group))
 
 
 def _greedy(options: Sequence[Sequence[Option]], budgets: List[int],
@@ -68,21 +154,23 @@ def _greedy(options: Sequence[Sequence[Option]], budgets: List[int],
     total = 0.0
     if seed:
         for r, o in seed.items():  # detlint: ignore[DET001] warm-start dict is solver-insertion-ordered; admission order is the algorithm
-            if o.usage <= rem[o.dim]:
+            if all(u <= rem[d] for d, u in _spans(o)):
                 chosen[r] = o
-                rem[o.dim] -= o.usage
+                for d, u in _spans(o):
+                    rem[d] -= u
                 total += o.reward
     order = sorted((r for r in range(len(options)) if r not in chosen),
                    key=lambda r: -max((o.reward for o in options[r]), default=0.0))
     for r in order:
         best = None
-        for o in sorted(options[r], key=lambda o: (-o.reward, o.usage)):
-            if o.reward > 0 and o.usage <= rem[o.dim]:
+        for o in sorted(options[r], key=lambda o: (-o.reward, _usage_total(o))):
+            if o.reward > 0 and all(u <= rem[d] for d, u in _spans(o)):
                 best = o
                 break
         if best is not None:
             chosen[r] = best
-            rem[best.dim] -= best.usage
+            for d, u in _spans(best):
+                rem[d] -= u
             total += best.reward
     return chosen, total
 
@@ -106,47 +194,85 @@ def solve(options: Sequence[Sequence[Option]], budgets: Sequence[int],
         node_cap = min(node_cap, max(1, int(time_cap * NODES_PER_SECOND)))
 
     # feasibility filter: an option can never fit if its usage alone
-    # exceeds its dimension's budget
-    feasible = [[o for o in opts if o.reward > 0 and o.usage <= budgets[o.dim]]
-                for opts in options]
+    # exceeds its dimension's budget (checked per consumed dimension).
+    # Spans are derived once per option here and threaded through the
+    # slack analysis, the prune, and the DFS prep.
+    feasible: List[List[Option]] = []
+    fspans: List[List[Tuple[Tuple[int, int], ...]]] = []
+    for opts in options:
+        keep_o: List[Option] = []
+        keep_s: List[Tuple[Tuple[int, int], ...]] = []
+        for o in opts:
+            if o.reward <= 0:
+                continue
+            sp = _spans(o)
+            for d, u in sp:
+                if u > budgets[d]:
+                    break
+            else:
+                keep_o.append(o)
+                keep_s.append(sp)
+        feasible.append(keep_o)
+        fspans.append(keep_s)
 
     # slack dimensions: budget covers every request's largest option there,
     # so the dimension can never be binding in any solution
     max_use = [0] * len(budgets)
-    for opts in feasible:
+    for sps in fspans:
         per_dim: Dict[int, int] = {}
-        for o in opts:
-            if o.usage > per_dim.get(o.dim, 0):
-                per_dim[o.dim] = o.usage
+        for sp in sps:
+            for d, u in sp:
+                if u > per_dim.get(d, 0):
+                    per_dim[d] = u
         for d, u in per_dim.items():
             max_use[d] += u
     slack = [max_use[d] <= budgets[d] for d in range(len(budgets))]
 
     # dominance prune per request:
-    #   * same dim: dominated in (reward, usage) — classic Pareto;
-    #   * cross dim: any option on a slack dimension dominates options with
-    #     no more reward (swapping to it can never break feasibility).
+    #   * same dims: dominated in (reward, per-dim usage) — classic Pareto;
+    #   * cross dim: any option entirely on slack dimensions dominates
+    #     options with no more reward (swapping to it can never break
+    #     feasibility).
     pruned: List[List[Option]] = []
-    for opts in feasible:
+    pspans: List[List[Tuple[Tuple[int, int], ...]]] = []
+    for opts, sps in zip(feasible, fspans):
         slack_best = None
-        for o in opts:
-            if slack[o.dim] and (slack_best is None or o.reward > slack_best):
-                slack_best = o.reward
-        keep: List[Option] = []
-        for o in sorted(opts, key=lambda o: (o.usage, -o.reward)):
-            if slack_best is not None and o.reward < slack_best and not slack[o.dim]:
-                continue
-            if not any(p.reward >= o.reward and p.dim == o.dim and p.usage <= o.usage
-                       for p in keep):
-                keep.append(o)
-        pruned.append(keep)
+        for o, sp in zip(opts, sps):
+            for d, _ in sp:
+                if not slack[d]:
+                    break
+            else:
+                if slack_best is None or o.reward > slack_best:
+                    slack_best = o.reward
+        keep: List[Tuple[Option, Tuple[Tuple[int, int], ...],
+                         Dict[int, int]]] = []
+        for o, sp in sorted(zip(opts, sps),
+                            key=lambda t: (_usage_total(t[0]), -t[0].reward)):
+            o_use = dict(sp)
+            if slack_best is not None and o.reward < slack_best:
+                if not all(slack[d] for d in o_use):
+                    continue
+            dominated = False
+            for p, psp, p_use in keep:
+                if p.reward >= o.reward and p_use.keys() == o_use.keys():
+                    for d, u in psp:
+                        if u > o_use[d]:
+                            break
+                    else:
+                        dominated = True
+                        break
+            if not dominated:
+                keep.append((o, sp, o_use))
+        pruned.append([t[0] for t in keep])
+        pspans.append([t[1] for t in keep])
 
     # order: largest best-reward first (tightens the additive bound quickly);
     # requests with *identical* option lists sort adjacently so the DFS can
     # break their symmetry (steady traffic yields many same-class requests
     # with bit-identical rewards)
     best_reward = [max((o.reward for o in opts), default=0.0) for opts in pruned]
-    sig = [tuple(sorted((o.dim, o.usage, o.reward) for o in opts)) for opts in pruned]
+    sig = [tuple(sorted((sp, o.reward) for o, sp in zip(opts, sps)))
+           for opts, sps in zip(pruned, pspans)]
     order = sorted(range(n), key=lambda r: (-best_reward[r], sig[r]))
     # suffix bound: best achievable from request position j onward
     suffix = [0.0] * (n + 1)
@@ -177,11 +303,20 @@ def solve(options: Sequence[Sequence[Option]], budgets: Sequence[int],
     nodes = 0
     capped = False
 
-    # each request's options best-reward-first, sorted once
-    by_reward = [sorted(opts, key=lambda o: -o.reward) for opts in pruned]
+    # each request's options best-reward-first with their spans, sorted once
+    by = [sorted(zip(opts, sps), key=lambda t: -t[0].reward)
+          for opts, sps in zip(pruned, pspans)]
+    by_reward = [[o for o, _ in lst] for lst in by]
+    by_spans = [[(sp, _usage_total(o)) for o, sp in lst] for lst in by]
 
     def dfs(j: int, rem: List[int], cap_rem: int, cur: float,
             chosen: Dict[int, Option]):
+        """The walk of an all-scalar instance (every dispatch ILP but the
+        cross-lane batcher's): ``dfs_spans``' nodes in the same order, with
+        a smaller frame and no span loops.  Kept apart because one walk
+        holding both loops ran several times slower a node on CPython
+        3.12.3 (``chip_smoke.py`` phase 5c's 128-chip flux dispatch round
+        on an H100 host: 455-627 ms, against 24-41 ms for this walk)."""
         nonlocal best_reward_found, best_choices, nodes, capped
         if capped:
             return
@@ -213,6 +348,63 @@ def solve(options: Sequence[Sequence[Option]], budgets: Sequence[int],
                 rem[o.dim] += o.usage
         dfs(skip_to[j], rem, cap_rem, cur, chosen)
 
-    dfs(0, list(budgets), sum(budgets), 0.0, {})
+    def dfs_spans(j: int, rem: List[int], cap_rem: int, cur: float,
+                  chosen: Dict[int, Option]):
+        nonlocal best_reward_found, best_choices, nodes, capped
+        if capped:
+            return
+        nodes += 1
+        if nodes >= node_cap:
+            capped = True
+            return
+        if cur > best_reward_found:
+            best_reward_found = cur
+            best_choices = dict(chosen)
+        if j >= n:
+            return
+        stop = j + cap_rem
+        bound = suffix[j] - suffix[stop if stop < n else n]
+        if cur + bound <= best_reward_found + 1e-12:
+            return
+        r = order[j]
+        opts_r = by_reward[r]
+        for i, (sp, use) in enumerate(by_spans[r]):
+            for d, u in sp:
+                if u > rem[d]:
+                    break
+            else:
+                o = opts_r[i]
+                for d, u in sp:
+                    rem[d] -= u
+                chosen[r] = o
+                dfs_spans(j + 1, rem, cap_rem - use, cur + o.reward, chosen)
+                del chosen[r]
+                for d, u in sp:
+                    rem[d] += u
+        dfs_spans(skip_to[j], rem, cap_rem, cur, chosen)
+
+    scalar = all(len(sp) == 1 for sps in pspans for sp in sps)
+    (dfs if scalar else dfs_spans)(0, list(budgets), sum(budgets), 0.0, {})
     return Solution(choices=best_choices, reward=best_reward_found,
                     nodes=nodes, optimal=not capped)
+
+
+def brute_force(options: Sequence[Sequence[Option]], budgets: Sequence[int]) -> float:
+    """Exhaustive reference for tests (tiny instances only)."""
+    best = 0.0
+    for combo in itertools.product(*(list(opts) + [None] for opts in options)):
+        rem = list(budgets)
+        total = 0.0
+        ok = True
+        for o in combo:
+            if o is None or o.reward <= 0:
+                continue
+            for d, u in _spans(o):
+                rem[d] -= u
+            if any(rem[d] < 0 for d, _ in _spans(o)):
+                ok = False
+                break
+            total += o.reward
+        if ok:
+            best = max(best, total)
+    return best

@@ -28,6 +28,13 @@ class Orchestrator:
         self.num_units = num_chips // profiler.k_min
         self.units_per_node = max(1, chips_per_node // profiler.k_min)
 
+    def resize(self, num_chips: int) -> None:
+        """Re-target the orchestrator at a new chip budget.  Used by the
+        fleet layer (core/fleet.py) when the shared-cluster partition moves
+        chips between pipelines; subsequent ``generate`` calls plan within
+        the new budget."""
+        self.num_units = num_chips // self.prof.k_min
+
     # -- Algorithm 2, lines 1-2 ----------------------------------------------
 
     def opt_vr(self, req: Request) -> int:

@@ -37,15 +37,23 @@ def primary_of_vr(vr: int) -> str:
 class PlacementPlan:
     """P = {π_g}: placement type per scheduling unit (k_min chips).
 
-    Counterpart of the reference's plan for one pipeline: the fleet's
-    pipeline tags, unit lending and elastic decommissioning are not ported.
+    ``pipeline`` tags the owning pipeline when the plan is one slice of a
+    shared-cluster fleet plan (core/fleet.py): each scheduling unit then
+    carries ``(pipeline, placement_type)``.  Single-tenant plans leave it
+    empty — the 1-pipeline special case.  The reference's unit-lending and
+    elastic-decommissioning overlays are not ported.
     """
     placements: List[str]                 # index = unit id
     unit_size: int = 1                    # chips per unit (App. E.2 MP fold)
     units_per_node: int = 8               # scheduling units per 8-chip node
+    pipeline: str = ""                    # owning pipeline in a fleet plan
 
     def __post_init__(self):
         assert all(p in PLACEMENT_TYPES for p in self.placements)
+
+    def tagged(self, unit: int) -> Tuple[str, str]:
+        """(pipeline, placement_type) of one scheduling unit."""
+        return (self.pipeline, self.placements[unit])
 
     @property
     def num_units(self) -> int:

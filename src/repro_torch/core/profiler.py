@@ -4,7 +4,9 @@ Counterpart of ``repro/core/profiler.py``. It derives the tables from a
 roofline-style analytic model over the pipeline's configs; parameter counts
 and bytes come from the port's own modules built on the ``meta`` device, so
 they are exact and allocate nothing. The hardware is a named, frozen
-``Hardware`` set passed to ``Profiler``: this package defines ``H100_SXM``.
+``Hardware`` set passed to ``Profiler``: this package defines ``H100_SXM``,
+and ``REFERENCE_HW``, the JAX reference's own constants, so the port can
+reproduce the reference's committed results.
 Its rates are the data sheet's; its efficiency knobs (``mfu``,
 ``seq_mfu_knee``, ``mfu_conv``) are fitted to stage times measured on one
 H100 (``python -m repro_torch.launch.calibrate``), and its host costs are
@@ -68,6 +70,16 @@ H100_SXM = Hardware(
     hbm_bytes=80 * 10 ** 9, mem_reserve=2 ** 30, mfu=0.6279, mfu_conv=0.3761,
     seq_mfu_knee=0, dispatch_overhead=8.11e-5, inter_node_bw=400e9 / 8,
     host_bw=51.51e9, comm_group_init=0.52881)
+
+# The JAX reference's constant set (a TPU v5e chip), copied from its
+# profiler. Not the port's hardware: it exists so that the port's host paths
+# can be held against the reference's committed results
+# (``launch/serve_fleet.py --hw reference``).
+REFERENCE_HW = Hardware(
+    name="reference", peak_flops=197e12, hbm_bw=819e9, link_bw=50e9,
+    hbm_bytes=16 * 2 ** 30, mem_reserve=512 * 2 ** 20, mfu=0.5, mfu_conv=0.12,
+    seq_mfu_knee=384, dispatch_overhead=0.004, inter_node_bw=25e9,
+    host_bw=10e9, comm_group_init=0.05)
 
 # SP degrees in scheduling units; those above one node's worth are the
 # reference's cross-node SP, which is not ported, so they are never chosen

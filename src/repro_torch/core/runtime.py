@@ -22,9 +22,10 @@ simulator (``core/simulator.py``), with the profiler's latencies in place of
 stage executions.  ``launch/serve.py`` and ``launch/serve_pipeline.py`` go
 through it; nothing runs it with real stage executions on the clock.
 
-Counterpart of ``repro/core/runtime.py`` for one pipeline: the hooks of the
-fleet (unit seeding, pre-warm), of unit lending (loan units, cross-lane
-pushes) and of elastic capacity (unit slowdowns) wait for those modules.
+Counterpart of ``repro/core/runtime.py``, with the fleet's hooks (unit
+seeding on a re-partition, predictive pre-warm, cross-lane fused stages):
+the hooks of unit lending (loan units) and of elastic capacity (unit
+slowdowns) wait for those modules.
 """
 from __future__ import annotations
 
@@ -61,6 +62,12 @@ class EngineStats:
     transfer_time: float = 0.0
     placement_switches: int = 0
     downtime: float = 0.0
+    prewarm_loads: int = 0
+    prewarm_load_time: float = 0.0
+    # dispatch ILP solutions reused across wake-ups without a re-solve: the
+    # reference's incremental ILP, which waits for the array-backed slice,
+    # sets it; here it reads 0
+    ilp_reuses: int = 0
 
 
 class RuntimeEngine:
@@ -108,6 +115,35 @@ class RuntimeEngine:
         """Live ``{uid: free_at}`` view (same read-only contract as
         ``idle_units``)."""
         return self._free_map
+
+    def seed_unit_state(self, busy_until: Dict[int, float]) -> None:
+        """Pre-busy freshly built units (fleet re-partition, core/fleet.py):
+        a unit inherits the in-flight work of the chips it now owns plus the
+        weight-reload latency charged when its pipeline or placement type
+        changed hands."""
+        for uid, t in busy_until.items():
+            u = self.units[uid]
+            if t > u.free_at:
+                u.free_at = t
+                self._free_map[uid] = t
+            if u.free_at > 0.0:
+                self._mark_busy(uid, u.free_at)
+
+    def stage_prewarm(self, uid: int, tau: float, load_time: float) -> float:
+        """Predictive pre-warm (core/fleet.py): stage a *future* partition's
+        weights on a unit that keeps serving its current pipeline until the
+        cutover.  The staging DMA occupies the unit like a reload (charged
+        through ``seed_unit_state``, the same entry point re-partition
+        swaps pay), but the unit stays in its engine and remains
+        dispatchable afterwards — the load overlaps the tail of the old
+        mix instead of charging downtime at the re-partition.  Returns the
+        time the unit is busy until."""
+        u = self.units[uid]
+        until = max(tau, u.free_at) + load_time
+        self.seed_unit_state({uid: until})
+        self.stats.prewarm_loads += 1
+        self.stats.prewarm_load_time += load_time
+        return until
 
     # ----------------------------------------------------------- placement plan
 
@@ -208,6 +244,23 @@ class RuntimeEngine:
             u.hb_staged = 0.0
             self._mark_busy(g, finish)
 
+    def push_cross(self, nbytes: float) -> float:
+        """Transfer cost of pushing inter-stage tensors to a *foreign*
+        engine's units (cross-lane fused stage runs, core/dispatcher.py's
+        ``CrossLaneBatcher``): always the two-step inter-node path — lanes
+        occupy disjoint chip ranges, so source and destination never share
+        a node — with no handoff-buffer staging on the destination (the
+        host engine owns that unit's buffer accounting).  Returns the
+        added latency; stats are charged to this (the member's) engine,
+        mirroring ``_push``."""
+        t = (self.prof.transfer_time(nbytes, intra_node=False)
+             + self.prof.transfer_time(nbytes, intra_node=True))
+        self.stats.device_pushes += 1
+        self.stats.transfer_time += t
+        if self.proactive_push:
+            return t
+        return t + self.prof.hw.dispatch_overhead
+
     # ----------------------------------------------------------- dispatch plans
 
     def execute(self, dec: DispatchDecision, tau: float) -> Dict[str, Tuple[float, float]]:
@@ -215,58 +268,93 @@ class RuntimeEngine:
 
         Timing honors: unit availability, reinstance, Adjust-on-Dispatch
         loads, proactive push, and merging of co-located consecutive stages.
+
+        Cross-lane fused stages (fleet dynamic batching) override parts of
+        the plan via decision attributes set by the batcher:
+
+        * ``dec.xl_efused = (start, fin, native, host_units)`` — Encode ran
+          (or will run) as one fused launch on the *host* lane's units;
+          this engine only models the activation push from those units to
+          its own Diffuse set (``_push`` when the host is this engine,
+          ``push_cross`` otherwise) and never touches ``dec.e_units``.
+        * ``dec.xl_cdefer`` — Decode is fused downstream: release the
+          Diffuse units at D-finish and return without a "C" entry; the
+          batcher schedules the fused decode from the recorded D-finish.
         """
         req = dec.request
         prof = self.prof
         overhead = prof.hw.dispatch_overhead
         k_chips = dec.degree * prof.k_min
         bs = dec.batch   # App. E.1 dynamic batching
+        xl_e = getattr(dec, "xl_efused", None)
         t_d = prof.batched_stage_time(req, "D", k_chips, bs)
 
         out: Dict[str, Tuple[float, float]] = {}
-        t_e = prof.batched_stage_time(
-            req, "E", max(1, len(dec.e_units)) * prof.k_min, bs)
-        merged_ed = tuple(dec.e_units) == tuple(dec.d_units)
-
-        # --- E ---------------------------------------------------------------
         units = self.units
-        e_ready = tau
-        for g in dec.e_units:
-            t = units[g].free_at
-            if t > e_ready:
-                e_ready = t
-        e_ready += self._reinstance(dec.e_units)
-        e_ready += self._prepare_stage("E", dec.e_units, tau)
-        if merged_ed:
-            # merging execute: E+D single atomic run (one dispatch overhead)
-            d_ready = e_ready
-            for g in dec.d_units:
-                t = units[g].free_at
-                if t > d_ready:
-                    d_ready = t
-            d_ready += self._reinstance(dec.d_units)
-            d_ready += self._prepare_stage("D", dec.d_units, tau)
-            start = d_ready
-            e_fin = start + t_e
-            d_fin = e_fin + t_d - overhead  # merged: one overhead
-            self.stats.merged_runs += 1
-            out["E"] = (start, e_fin)
-            out["D"] = (e_fin, d_fin)
-        else:
-            e_fin = e_ready + t_e
-            out["E"] = (e_ready, e_fin)
-            self._reserve(dec.e_units, e_fin)
-            data_ready = self._push(prof.comm_bytes(req, "ED"),
-                                    dec.e_units, dec.d_units, e_fin)
-            d_start = data_ready
-            for g in dec.d_units:
-                t = units[g].free_at
-                if t > d_start:
-                    d_start = t
+        if xl_e is not None:
+            e_start, e_fin, native, host_units = xl_e
+            out["E"] = (e_start, e_fin)
+            nbytes = prof.comm_bytes(req, "ED")
+            if native:
+                data_ready = self._push(nbytes, host_units, dec.d_units,
+                                        e_fin)
+            else:
+                data_ready = e_fin + self.push_cross(nbytes)
+            d_start = max(data_ready,
+                          max(units[g].free_at for g in dec.d_units))
             d_start += self._reinstance(dec.d_units)
             d_start += self._prepare_stage("D", dec.d_units, tau)
             d_fin = d_start + t_d
             out["D"] = (d_start, d_fin)
+        else:
+            t_e = prof.batched_stage_time(
+                req, "E", max(1, len(dec.e_units)) * prof.k_min, bs)
+            merged_ed = tuple(dec.e_units) == tuple(dec.d_units)
+
+            # --- E -----------------------------------------------------------
+            e_ready = tau
+            for g in dec.e_units:
+                t = units[g].free_at
+                if t > e_ready:
+                    e_ready = t
+            e_ready += self._reinstance(dec.e_units)
+            e_ready += self._prepare_stage("E", dec.e_units, tau)
+            if merged_ed:
+                # merging execute: E+D single atomic run (one dispatch overhead)
+                d_ready = e_ready
+                for g in dec.d_units:
+                    t = units[g].free_at
+                    if t > d_ready:
+                        d_ready = t
+                d_ready += self._reinstance(dec.d_units)
+                d_ready += self._prepare_stage("D", dec.d_units, tau)
+                start = d_ready
+                e_fin = start + t_e
+                d_fin = e_fin + t_d - overhead  # merged: one overhead
+                self.stats.merged_runs += 1
+                out["E"] = (start, e_fin)
+                out["D"] = (e_fin, d_fin)
+            else:
+                e_fin = e_ready + t_e
+                out["E"] = (e_ready, e_fin)
+                self._reserve(dec.e_units, e_fin)
+                data_ready = self._push(prof.comm_bytes(req, "ED"),
+                                        dec.e_units, dec.d_units, e_fin)
+                d_start = data_ready
+                for g in dec.d_units:
+                    t = units[g].free_at
+                    if t > d_start:
+                        d_start = t
+                d_start += self._reinstance(dec.d_units)
+                d_start += self._prepare_stage("D", dec.d_units, tau)
+                d_fin = d_start + t_d
+                out["D"] = (d_start, d_fin)
+
+        if getattr(dec, "xl_cdefer", False):
+            # fused decode downstream: hold the Diffuse units through D only
+            self._reserve(dec.d_units, d_fin)
+            self.stats.dispatches += 1 if xl_e is not None else 2
+            return out
 
         # --- C ---------------------------------------------------------------
         t_c = prof.batched_stage_time(req, "C",
@@ -294,5 +382,5 @@ class RuntimeEngine:
             out["C"] = (c_start, c_fin)
             self._reserve(dec.c_units, c_fin)
 
-        self.stats.dispatches += 3
+        self.stats.dispatches += 2 if xl_e is not None else 3
         return out

@@ -21,6 +21,9 @@ dispatch):
   grid, so on traces where the skipped ticks are no-ops the two modes
   produce bit-identical results at O(events) cost.
 
+The shared-cluster ``FleetSimulator`` (core/fleet.py) drives the same kernel
+with one Lane per pipeline.
+
 Counterpart of ``repro/core/simulator.py``: cross-node SP and the
 array-backed lane state are not ported yet.
 """

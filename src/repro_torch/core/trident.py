@@ -2,8 +2,8 @@
 Algorithm 1 (bootstrap placement -> online dispatch -> adaptive re-placement
 via Adjust-on-Dispatch).
 
-Counterpart of ``repro/core/trident.py`` for one pipeline: the fleet's
-aggregate and incremental ILP and cross-lane batching are not ported yet.
+Counterpart of ``repro/core/trident.py``: the incremental ILP and the
+array-backed deadline order wait for the array-backed slice.
 """
 from __future__ import annotations
 
@@ -24,10 +24,18 @@ class TridentScheduler(Scheduler):
 
     def __init__(self, prof: Profiler, sim_cfg, trace: Sequence[Request], *,
                  enable_switch: bool = True, stage_aware: bool = True,
-                 use_ilp: bool = True, enable_batching: bool = True):
+                 use_ilp: bool = True, enable_batching: bool = True,
+                 aggregate_ilp: bool = False,
+                 cross_lane_batching: bool = False):
         super().__init__(prof, sim_cfg, trace)
         self.orch = Orchestrator(prof, num_chips=sim_cfg.num_chips)
-        self.disp = Dispatcher(prof)
+        # aggregate_ilp: multiplicity-aware solver aggregation (identical
+        # pending requests enter once with a count); the fleet turns it on
+        self.disp = Dispatcher(prof, aggregate=aggregate_ilp)
+        # fleet cross-lane batching: when on, tick() annotates decisions
+        # whose auxiliary E/C runs are fusable across lanes (dec.xl_candidate)
+        # for the fleet's CrossLaneBatcher; off leaves decisions untouched
+        self.cross_lane_batching = cross_lane_batching
         self.enable_switch = enable_switch      # wo-switch ablation
         self.stage_aware = stage_aware          # wo-stageAware ablation
         self.use_ilp = use_ilp                  # wo-scheduler ablation
@@ -127,7 +135,44 @@ class TridentScheduler(Scheduler):
                     dec.request, "D", dec.degree * self.prof.k_min))
                 dec.corequests = tuple(chunk[1:bs])
         self.solver_time += time.perf_counter() - t0  # detlint: ignore[DET002] wall-clock metrics only (solver_time); no control flow
+        if self.cross_lane_batching:
+            self._mark_cross_lane(sim, tau, out)
         return out
+
+    def _mark_cross_lane(self, sim, tau: float,
+                         out: List[DispatchDecision]) -> None:
+        """Mark auxiliary stage runs the fleet batcher may fuse across
+        lanes: E when it is NOT merged into the primary launch, C when it
+        runs on units outside the decode set.  Co-resident stages stay
+        native — fusing them would break the merged-launch model."""
+        free_at = sim.engine.free_at()
+        for dec in out:
+            prim = PRIMARY_PLACEMENTS[dec.vr_type]
+            stages = []
+            if "E" not in prim and dec.e_units:
+                stages.append("E")
+            if dec.c_units and not set(dec.c_units) <= set(dec.d_units):
+                stages.append("C")
+            if stages:
+                dec.xl_candidate = tuple(stages)
+            # E-hold: when the auxiliary encode unit is already backlogged
+            # past one solo run, dispatching natively would pin primary
+            # units against a queued encode.  The decision is marked held —
+            # the fleet batcher still sees it as a fusion candidate this
+            # tick, but if no cross-lane fusion takes it the lane skips
+            # execution and the request stays in the pending pool
+            # (clock.Lane.execute_decisions), so the backlog queues where
+            # fusion can pack it instead of invisibly on the unit's
+            # free_at.  Once the backlog drains (wait <= one run) requests
+            # dispatch natively, so holding never idles the unit; requests
+            # out of deadline slack always dispatch (no starvation under
+            # overload).
+            if "E" in stages:
+                wait = max(free_at.get(g, tau) for g in dec.e_units) - tau
+                solo = self.prof.stage_time(
+                    dec.request, "E", len(dec.e_units) * self.prof.k_min)
+                if wait > solo and tau + wait <= dec.request.deadline:
+                    dec.xl_hold = True
 
     # -- ablation variants ---------------------------------------------------------
 

@@ -1,8 +1,9 @@
 """Workload traces (paper section 8.1, Table 5): Steady, Dynamic, Proprietary.
 
-Counterpart of ``repro/core/workloads.py``, single-pipeline traces only (the
-fleet, cross-batch, scale, lending and elastic traces wait for their
-modules). Mix weights and request rates follow Table 5; Poisson arrivals.
+Counterpart of ``repro/core/workloads.py``: the single-pipeline traces, and
+the fleet's heterogeneous traces (the shared-cluster mix flip, the diurnal
+predictive scenario, the cross-lane batching burst storm).  The lending,
+scale and elastic traces wait for their modules.  Mix weights and request rates follow Table 5; Poisson arrivals.
 The Proprietary trace has the diurnal/tidal shape of Fig. 9, scaled to the
 Steady request budget (Appendix D.1). Each request's deadline is
 ``SLO_SCALE`` times its pipeline time under the given ``Profiler``, so with
@@ -13,7 +14,7 @@ from __future__ import annotations
 
 import math
 import random
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 from repro_torch.core.profiler import Profiler
 from repro_torch.core.request import Request
@@ -138,6 +139,246 @@ def proprietary_trace(pipeline: str, duration: float, prof: Profiler,
                             weights=[0.4, 0.4, 0.2])[0]
         out.append(_mk_request(pipeline, _sample_class(rng, MIXES[pipeline][level]),
                                t, prof, slo_scale))
+    return out
+
+
+# -- heterogeneous fleet traces (shared-cluster co-serving, core/fleet.py) ----
+
+# Per-pipeline base rates for the 512-chip shared cluster (requests/s),
+# and the canonical traffic-mix flip: image-dominated first half, then
+# demand tilts hard toward the heavy pipelines mid-trace.  Tuned so both
+# phases run the cluster hot (~60-75% busy chips) with very different
+# per-pipeline splits — the regime where the partition, not raw capacity,
+# decides SLOs.  A static partition sized for the first half strands chips
+# on SD3 exactly when Flux/CogVideoX back up.  ``launch/serve_fleet.py
+# --scenario shared`` passes these explicitly; ``fleet_trace`` itself
+# defaults to a flat single phase.
+FLEET_RATES: Dict[str, float] = {"sd3": 60.0, "flux": 3.0, "cogvideox": 2.0}
+MIX_FLIP: Tuple[Tuple[float, Dict[str, float]], ...] = (
+    (0.5, {"sd3": 2.0, "flux": 1.0 / 3.0, "cogvideox": 0.75}),
+    (1.0, {"sd3": 0.5, "flux": 2.0, "cogvideox": 1.25}),
+)
+
+# Cross-lane dynamic batching scenario (``launch/serve_fleet.py --scenario
+# cross_batch``): a long-prompt burst storm over a flux +
+# hunyuanvideo fleet.  A steady cheap-prompt base stream (cond_len 77,
+# ``light`` mixes) sizes the frozen plans — each lane gets exactly one
+# auxiliary encode unit and flux's EDC pool runs ~90% busy.  On top of
+# it, correlated waves of prompt-expansion requests (cond_len 4096,
+# CROSS_BATCH_MIXES classes with cheap decode so the encode stage is the
+# bottleneck) hit both pipelines at once.  Each wave overloads flux's
+# single aux <E> unit (~2.4 unit-equivalents of encode demand against 1);
+# cross-lane batching packs flux and hunyuanvideo encodes into one
+# batched launch on the freer of the two aux units (~1.55x batch
+# amortization at cond 4096).  The alternatives are structurally out:
+# unit lending cannot help (flux's encode at cond 4096 runs 0.37 s,
+# below the 0.5 s ``lend_min_stage_s`` gate, and the correlated waves
+# leave no idle-window-clean supply) and re-partitioning cannot help
+# (every plan shape carries exactly one aux E unit regardless of chip
+# count, the waves are correlated so shares don't move, and each burst
+# is shorter than the detection window + cooldown).  Rates are tuned for
+# 96 chips; the wave rate sits just below the regime where fused batches
+# serialize — raising it inverts the benefit.
+CROSS_BATCH_PIPELINES: Tuple[str, ...] = ("flux", "hunyuanvideo")
+CROSS_BATCH_MIXES: Dict[str, List[Tuple[Tuple[int, float], float]]] = {
+    "flux": [((128, 0), 1), ((256, 0), 1)],
+    "hunyuanvideo": [((540, 1), 1)],
+}
+CROSS_BATCH_BASE_RATES: Dict[str, float] = {"flux": 2.2, "hunyuanvideo": 0.5}
+CROSS_BATCH_WAVE_RATES: Dict[str, float] = {"flux": 7.0, "hunyuanvideo": 0.3}
+CROSS_BATCH_COND: Dict[str, int] = {"flux": 4096, "hunyuanvideo": 4096}
+# the wave stream draws from an offset seed so base and wave arrivals
+# stay independent per-pipeline streams (prime offset, same idiom as the
+# dynamic/proprietary trace seed offsets)
+CROSS_BATCH_WAVE_SEED_OFFSET = 7919
+
+
+def cross_batch_phases(duration: float, head: float = 240.0,
+                       burst: float = 90.0, calm: float = 150.0,
+                       pipelines: Sequence[str] = CROSS_BATCH_PIPELINES
+                       ) -> Tuple[Tuple[float, Dict[str, float]], ...]:
+    """Burst-gate phase spans for the cross-batch wave stream: multiplier
+    0 for every pipeline outside the bursts (the wave simply does not
+    exist then), 1 inside.  Like ``bursty_ec_phases`` the burst lengths
+    are absolute — each burst must stay shorter than the re-partitioner's
+    detection window + cooldown — and durations too short for one full
+    cycle fall back to the tuned 900 s shape scaled proportionally."""
+    if duration < head + burst + calm:
+        scale = duration / 900.0
+        head, burst, calm = head * scale, burst * scale, calm * scale
+    off = {p: 0.0 for p in pipelines}
+    on = {p: 1.0 for p in pipelines}
+    spans: List[Tuple[float, Dict[str, float]]] = [(head / duration, dict(off))]
+    t = head
+    while t < duration:
+        t += burst
+        spans.append((min(t / duration, 1.0), dict(on)))
+        if t >= duration:
+            break
+        t += calm
+        spans.append((min(t / duration, 1.0), dict(off)))
+    return tuple(spans)
+
+
+def cross_batch_trace(duration: float, profs: Dict[str, Profiler],
+                      seed: int = 0,
+                      base_rates: Optional[Dict[str, float]] = None,
+                      wave_rates: Optional[Dict[str, float]] = None,
+                      head: float = 240.0, burst: float = 90.0,
+                      calm: float = 150.0,
+                      slo_scale: float = SLO_SCALE) -> List[Request]:
+    """Long-prompt burst-storm trace: the cheap-prompt base stream merged
+    with the burst-gated cond-4096 wave stream.  Wave requests carry
+    ``cond_len`` from CROSS_BATCH_COND and their deadline is recomputed
+    from the profiler at that prompt length, so the SLO reflects the work
+    actually requested."""
+    pipes = CROSS_BATCH_PIPELINES
+    base = fleet_trace(pipes, duration, profs, seed=seed,
+                       rates=dict(base_rates or CROSS_BATCH_BASE_RATES),
+                       level="light", slo_scale=slo_scale)
+    wave = fleet_trace(pipes, duration, profs,
+                       seed=seed + CROSS_BATCH_WAVE_SEED_OFFSET,
+                       rates=dict(wave_rates or CROSS_BATCH_WAVE_RATES),
+                       phases=cross_batch_phases(duration, head, burst, calm,
+                                                 pipes),
+                       mix_override=CROSS_BATCH_MIXES, slo_scale=slo_scale)
+    for r in wave:
+        r.cond_len = CROSS_BATCH_COND[r.pipeline]
+        r.deadline = r.arrival + slo_scale * profs[r.pipeline].pipeline_time(r)
+    out = base + wave
+    out.sort(key=lambda r: (r.arrival, r.pipeline, r.rid))
+    return out
+
+
+# Diurnal predictive scenario (``launch/serve_fleet.py --scenario
+# predictive``):
+# anti-phase day/night demand between the image and the video pipeline —
+# the periodic structure the demand forecaster (core/forecast.py) exists to
+# exploit.  Each flip is sharp (square waveform) and each half-period is
+# longer than the adaptive scheduler's cooldown, so the adaptive fleet
+# *can* chase every flip — it just always arrives a detection window late
+# and pays the reload downtime mid-queue; the predictive scheduler
+# pre-warms and fires at the flip.  Tuned for ~256 chips: both phases run
+# the cluster hot without saturating the favoured pipeline.
+PREDICTIVE_RATES: Dict[str, float] = {"sd3": 28.0, "cogvideox": 0.84}
+
+
+def diurnal_phases(n_periods: int = 3, spans_per_period: int = 2,
+                   amp: float = 0.8, lead_pipeline: str = "sd3",
+                   anti_pipelines: Sequence[str] = ("cogvideox",),
+                   shape: str = "square"
+                   ) -> Tuple[Tuple[float, Dict[str, float]], ...]:
+    """Piecewise-constant diurnal rate multipliers for ``fleet_trace``:
+    ``lead_pipeline`` runs at ``1 + amp*w(t)`` and every anti-phase
+    pipeline at ``1 - amp*w(t)``, with ``w`` a unit periodic waveform —
+    ``"square"`` (day/night flips every half period, the canonical diurnal
+    mix flip) or ``"sine"`` (smooth tides, sampled at span midpoints).
+    Fractions are of the total trace duration, so the period is
+    ``duration / n_periods``."""
+    spans: List[Tuple[float, Dict[str, float]]] = []
+    total = n_periods * spans_per_period
+    for i in range(total):
+        w = math.sin(2.0 * math.pi * (i + 0.5) / spans_per_period)
+        if shape == "square":
+            w = 1.0 if w >= 0.0 else -1.0
+        mults = {lead_pipeline: 1.0 + amp * w}
+        for p in anti_pipelines:
+            mults[p] = 1.0 - amp * w
+        spans.append(((i + 1) / total, mults))
+    return tuple(spans)
+
+
+def phase_shift_phases(flip_frac: float = 0.5, tilt: float = 2.0,
+                       lead_pipeline: str = "sd3",
+                       anti_pipelines: Sequence[str] = ("cogvideox",)
+                       ) -> Tuple[Tuple[float, Dict[str, float]], ...]:
+    """One hard phase shift at ``flip_frac`` of the trace: the lead
+    pipeline tilts up then down (anti-phase pipelines mirror it) — the
+    single-transition sibling of ``diurnal_phases`` for trend-style
+    forecaster inputs and MIX_FLIP-shaped scenarios at any tilt."""
+    hi = {lead_pipeline: tilt, **{p: 1.0 / tilt for p in anti_pipelines}}
+    lo = {lead_pipeline: 1.0 / tilt, **{p: tilt for p in anti_pipelines}}
+    return ((flip_frac, hi), (1.0, lo))
+
+
+def randomized_fleet_scenario(seed: int,
+                              pipelines: Sequence[str] = ("sd3", "flux"),
+                              periods: int = 1
+                              ) -> Tuple[Dict[str, float],
+                                         Tuple[Tuple[float, Dict[str, float]],
+                                               ...]]:
+    """Seeded random (rates, phases) for the multi-lane event/tick parity
+    tests: per-pipeline base rates jittered around
+    the 128-chip test point and a mid-trace tilt at a random flip point.
+    One tuned definition here — like ``FLEET_RATES``/``MIX_FLIP`` — so the
+    parity suite and any future bench sweep draw the same scenarios.
+
+    ``periods > 1`` swaps the single flip for a periodic tilt (``2 *
+    periods`` equal spans alternating the same random tilt) — the
+    forecastable variant the ``predictive`` scheduler's parity runs use.
+    The rate/tilt draws are identical either way, so a seed's traffic
+    intensity matches across variants."""
+    rng = random.Random(f"fleet-scenario:{seed}")
+    test_rates = {"sd3": 10.0, "flux": 1.0, "cogvideox": 0.8,
+                  "hunyuanvideo": 0.4}
+    rates = {p: test_rates.get(p, RATES[p] / 2.0) * rng.uniform(0.6, 1.2)
+             for p in pipelines}
+    flip = rng.uniform(0.35, 0.65)
+    tilt = rng.uniform(1.5, 2.5)
+    first, rest = pipelines[0], list(pipelines[1:])
+    hi = {first: tilt, **{p: 1.0 / tilt for p in rest}}
+    lo = {first: 1.0 / tilt, **{p: tilt for p in rest}}
+    if periods <= 1:
+        phases = ((flip, hi), (1.0, lo))
+    else:
+        n = 2 * periods
+        phases = tuple(((i + 1) / n, hi if i % 2 == 0 else lo)
+                       for i in range(n))
+    return rates, phases
+
+
+def fleet_trace(pipelines: Sequence[str], duration: float,
+                profs: Dict[str, Profiler], seed: int = 0,
+                rates: Optional[Dict[str, float]] = None,
+                phases: Optional[Sequence[Tuple[float, Dict[str, float]]]] = None,
+                level: str = "medium",
+                slo_scale: float = SLO_SCALE,
+                mix_override: Optional[Dict[str, List[Tuple[Tuple[int, float],
+                                                            float]]]] = None
+                ) -> List[Request]:
+    """Merged multi-pipeline trace with piecewise-constant rate multipliers.
+
+    ``phases`` is a sequence of ``(end_fraction, {pipeline: multiplier})``
+    spans; within each span pipeline ``p`` arrives as a Poisson process at
+    ``rates[p] * multiplier`` (missing multipliers default to 1).  Each
+    pipeline draws from its own deterministic stream, so adding a pipeline
+    or reordering the list never perturbs the others' arrivals.
+    ``mix_override`` maps a pipeline to a class mix used in place of
+    ``MIXES[pid][level]`` (scenario-specific mixes like CROSS_BATCH_MIXES
+    stay out of the Table 5 tables)."""
+    if phases is None:
+        phases = ((1.0, {}),)
+    out: List[Request] = []
+    for pid in pipelines:
+        rng = random.Random(f"fleet:{seed}:{pid}")
+        base = (rates or FLEET_RATES).get(pid)
+        if base is None:   # lazily: alias pipelines have no Table 5 rate
+            base = RATES[pid]
+        mix = (mix_override or {}).get(pid) or MIXES[pid][level]
+        start = 0.0
+        for end_frac, mults in phases:
+            end = duration * end_frac
+            r = base * mults.get(pid, 1.0)
+            if r > 0.0:
+                t = start
+                while True:
+                    t += rng.expovariate(r)
+                    if t >= end:
+                        break
+                    out.append(_mk_request(pid, _sample_class(rng, mix), t,
+                                           profs[pid], slo_scale))
+            start = end
+    out.sort(key=lambda r: r.arrival)
     return out
 
 

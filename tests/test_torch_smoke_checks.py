@@ -418,3 +418,42 @@ def test_k2_checks_reject_a_stale_modulation_row_and_an_unwritten_tail(fault, b,
     err, ok = _k2_check(k2_model(x, s, t, fault=fault), x, s, t)
     print(f"K2 {fault} {b}x{l}x{d} {dtype}: max |err| {err:.3g}")
     assert not ok
+
+
+# -- phase 10: the simulated H100 fleet --------------------------------------------
+
+@pytest.fixture(scope="module")
+def fleet_result():
+    from repro_torch.core.fleet import FleetConfig, run_fleet
+    return run_fleet(["sd3", "flux"], mode="adaptive", duration=60.0,
+                     rates={"sd3": 4.0, "flux": 0.4}, cfg=FleetConfig(num_chips=16))
+
+
+@pytest.mark.parametrize("field,value", [("p95_latency", 1e9), ("sched_wakeups", -1),
+                                         ("repartitions", []), ("prewarm_units", 7),
+                                         ("engine_stats", {})])
+def test_fleet_rerun_check_rejects_one_changed_field(fleet_result, field, value):
+    """Phase 10's determinism check passes an identical second run and names
+    the one field a second run changed."""
+    smoke.same_result(fleet_result, dataclasses.replace(fleet_result), "cell")
+    with pytest.raises(RuntimeError, match=field):
+        smoke.same_result(fleet_result, dataclasses.replace(fleet_result, **{field: value}),
+                          "cell")
+
+
+def test_fleet_phase_runs_at_a_cut_size_and_prints_a_row_per_mode(tmp_path, monkeypatch,
+                                                                     capsys):
+    import json
+    monkeypatch.setattr(smoke, "out_path", lambda name: str(tmp_path / name))
+    rows = smoke.fleet_phase(chips=16, duration=120.0)
+    printed = [json.loads(line[len("[10] "):]) for line in capsys.readouterr().out.splitlines()
+               if line.startswith("[10] {")]
+    assert printed == rows == json.loads((tmp_path / "fleet.json").read_text())
+    assert [(r["scenario"], r["mode"]) for r in rows] == [
+        ("shared", "static"), ("shared", "proportional"), ("shared", "adaptive"),
+        ("shared", "predictive"), ("predictive", "adaptive"), ("predictive", "predictive"),
+        ("cross_batch", "off"), ("cross_batch", "batching")]
+    # one node of 8 chips per pipeline: the three-pipeline pool is cut to 24
+    assert [r["chips"] for r in rows] == [24] * 4 + [16] * 4
+    assert {r["duration_s"] for r in rows} == {120.0}
+    assert all(r["slo_pct"] >= 0.0 and r["host_s"] > 0.0 for r in rows)
