@@ -65,9 +65,17 @@ Phases:
      chip, 600 s) under the static, proportional, adaptive and predictive
      fleet schedulers; the diurnal predictive scenario at its CI size cut to
      480 s (adaptive, predictive); the cross-lane batching burst storm at its
-     CI size (batching off, on).  One ``[10] {json}`` row per mode, written to
-     ``chiprun_out/fleet.json``; a second run of one mode of each scenario
-     must give every ``FleetResult`` field the same, or the phase fails.
+     CI size (batching off, on); unit lending on the bursty-E/C trace at its
+     own pool (sd3 + cogvideox, 256 chips; adaptive without and with
+     lending, cut to 300 s); elastic capacity at its CI size (sd3 +
+     hunyuanvideo, 128 chips, one preemption storm, 480 s; drain-aware,
+     drain-unaware), on ``H100_SXM`` and again on the reference's constants.
+     One ``[10] {json}`` row per mode, written to ``chiprun_out/fleet.json``;
+     a second run of one mode of each scenario must give every
+     ``FleetResult`` field (and the elastic recovery-window P95) the same,
+     no Diffuse stage may run on a borrowed unit, and on the reference's
+     constants the drain-unaware arm must requeue work when nodes are lost,
+     or the phase fails.
 
 Every counted serve run (phases 5, 5b and 8) follows one untimed run at
 each of its shapes, so its stage times hold no first-call cost. K1 is also
@@ -1007,16 +1015,27 @@ def cluster_phase() -> list:
     return rows
 
 
-# phase 10's scenarios: serve_fleet's arguments, its own pool (what
-# --rate-scale is relative to), the trace's seconds, and the mode run twice.
-# The predictive scenario's CI size runs 960 s; cut to 480 s (four periods
-# of 120 s) because its 960 s took 385 s of host time on the card's machine
-# (its ILP solves grow with the backlog), over phase 10's 180 s
+# phase 10's scenarios: serve_fleet's arguments, the profiler's constant
+# set, its own pool (what --rate-scale is relative to), the trace's seconds,
+# and the mode run twice.  The predictive scenario's CI size runs 960 s; cut
+# to 480 s (four periods of 120 s) because its 960 s took 385 s of host time
+# on the card's machine (its ILP solves grow with the backlog), over phase
+# 10's 180 s.  The lending scenario runs 600 s (three 60 s bursts after a
+# 180 s head); cut to 300 s, which keeps the head and the 60 s burst and
+# calm spans but only the first burst, because its host time grows with
+# each burst's backlog: on a CPU where a 300 s run takes 1.2 s, 420 s (two
+# bursts) took 9-12.5 s and 600 s took 19 s.  On H100_SXM no unit on a
+# lost node holds work when the storm lands, so the elastic CI size runs a
+# second time on the reference's constants, where they do and the
+# drain-unaware arm must requeue them.
 FLEET_SCENARIOS = (
-    ("shared", ["--modes", "static,proportional,adaptive,predictive"], 512, 600.0,
-     "adaptive"),
-    ("predictive", ["--smoke"], 128, 480.0, "predictive"),
-    ("cross_batch", ["--smoke"], 64, 600.0, "batching"),
+    ("shared", "h100", ["--modes", "static,proportional,adaptive,predictive"], 512,
+     600.0, "adaptive"),
+    ("predictive", "h100", ["--smoke"], 128, 480.0, "predictive"),
+    ("cross_batch", "h100", ["--smoke"], 64, 600.0, "batching"),
+    ("lending", "h100", [], 256, 300.0, "adaptive+lending"),
+    ("elastic", "h100", ["--smoke"], 128, 480.0, "drain_aware"),
+    ("elastic", "reference", ["--smoke"], 128, 480.0, "drain_aware"),
 )
 FLEET_CHIPS = {"shared": 128}     # else the scenario's CI-sized pool
 
@@ -1030,9 +1049,32 @@ def same_result(first, second, what: str) -> None:
         raise RuntimeError(f"{what}: a second run differs in {diff}")
 
 
-def fleet_row(run, chips: int, duration: float) -> dict:
+def same_run(first, second, what: str) -> None:
+    """``same_result``, and the same recovery-window P95 where the scenario
+    has one."""
+    same_result(first.result, second.result, what)
+    if first.recovery != second.recovery:
+        raise RuntimeError(f"{what}: a second run differs in recovery_p95_s")
+
+
+def check_fleet_run(run, hw: str) -> None:
+    """Fail if a Diffuse stage ran on a borrowed unit, or if the elastic
+    scenario's drain-unaware arm on the reference's constants (where the
+    lost nodes hold work when the storm lands) lost nodes and requeued
+    nothing."""
     r = run.result
-    return {"scenario": run.scenario, "mode": run.mode, "chips": chips,
+    what = f"{run.scenario}/{run.mode} on {hw}"
+    if r.borrowed_stage_runs.get("D", 0):
+        raise RuntimeError(f"{what}: {r.borrowed_stage_runs['D']} Diffuse runs on "
+                           "borrowed units")
+    if (run.scenario == "elastic" and run.mode == "drain_unaware" and hw == "reference"
+            and r.nodes_lost and not r.requeued_requests):
+        raise RuntimeError(f"{what}: {r.nodes_lost} nodes lost and nothing requeued")
+
+
+def fleet_row(run, hw: str, chips: int, duration: float) -> dict:
+    r = run.result
+    return {"scenario": run.scenario, "mode": run.mode, "hw": hw, "chips": chips,
             "duration_s": duration,
             "slo_pct": r.slo_attainment * 100, "mean_s": r.mean_latency,
             "p95_s": r.p95_latency, "goodput_rps": r.goodput,
@@ -1040,6 +1082,13 @@ def fleet_row(run, chips: int, duration: float) -> dict:
             "predictive_repartitions": r.predictive_repartitions,
             "prewarm_units": r.prewarm_units,
             "cross_lane_merges": r.cross_lane_merges,
+            "loans": r.loans, "borrowed_unit_seconds": r.borrowed_unit_seconds,
+            "borrowed_stage_runs": r.borrowed_stage_runs,
+            "diffuse_runs_on_borrowed_units": r.borrowed_stage_runs.get("D", 0),
+            "nodes_lost": r.nodes_lost, "requeued_requests": r.requeued_requests,
+            "drained_units": r.drained_units, "quarantined_units": r.quarantined_units,
+            "elastic_prewarm_chips": r.elastic_prewarm_chips,
+            "recovery_p95_s": run.recovery[0] if run.recovery else None,
             "wakeups": r.sched_wakeups, "host_s": run.wall_s}
 
 
@@ -1047,18 +1096,19 @@ def fleet_phase(chips=None, duration=None) -> list:
     """The simulated H100 fleet through ``launch.serve_fleet.main``, each
     scenario at ``chips`` (default: its own, the load per chip kept) and
     ``duration`` seconds (default: its own); a second run of one mode of
-    each scenario must give the same ``FleetResult``."""
+    each scenario must give the same ``FleetResult``, and every run must
+    pass ``check_fleet_run``."""
     import contextlib
     import io
     from repro_torch.launch import serve_fleet
     rows = []
     t_all = time.perf_counter()
-    for scenario, argv, own_chips, seconds, rerun in FLEET_SCENARIOS:
+    for scenario, hw, argv, own_chips, seconds, rerun in FLEET_SCENARIOS:
         n = chips or FLEET_CHIPS.get(scenario, own_chips)
         # a pool holds at least one node of 8 chips per pipeline
         n = max(n, 8 * len(serve_fleet.SCENARIO_PIPELINES[scenario]))
         seconds = duration or seconds
-        argv = ["--scenario", scenario] + argv + [
+        argv = ["--scenario", scenario, "--hw", hw] + argv + [
             "--chips", str(n), "--rate-scale", repr(n / own_chips),
             "--duration", repr(seconds)]
         text = io.StringIO()
@@ -1068,13 +1118,21 @@ def fleet_phase(chips=None, duration=None) -> list:
         for line in text.getvalue().splitlines():
             print(f"[10] {line}", flush=True)
         first = next(r for r in runs if r.mode == rerun)
-        same_result(first.result, again[0].result, f"{scenario}/{rerun}")
+        same_run(first, again[0], f"{scenario}/{rerun} on {hw}")
+        for run in runs + again:
+            check_fleet_run(run, hw)
         for run in runs:
-            row = fleet_row(run, n, seconds)
+            row = fleet_row(run, hw, n, seconds)
             print(f"[10] {json.dumps(row)}", flush=True)
             rows.append(row)
-        print(f"[10] {scenario} at {n} chips: {len(runs)} modes, {rerun} "
+        print(f"[10] {scenario} on {hw} at {n} chips: {len(runs)} modes, {rerun} "
               f"repeated bit-equal", flush=True)
+        if scenario == "lending":
+            # the broker borrows only for a hosted stage worth lend_min_stage_s
+            worth = serve_fleet.lending_stage_worth(serve_fleet.HARDWARE[hw])
+            print(f"[10] lending gate on {hw}, largest hosted stage s per request: "
+                  f"{json.dumps(worth)} (lend_min_stage_s "
+                  f"{serve_fleet.FleetConfig.lend_min_stage_s})", flush=True)
     print(f"[10] fleet phase: {time.perf_counter() - t_all:.1f} s of host time",
           flush=True)
     with open(out_path("fleet.json"), "w") as f:

@@ -22,14 +22,16 @@
                      one placement plan for the whole cluster, chip budgets
                      re-partitioned with the live traffic mix
 * ``forecast``     — the demand forecaster behind predictive re-partitioning
+* ``lending``      — cross-pipeline unit lending between re-partitions
+* ``elastic``      — elastic, failure-prone capacity: the fault injector
 
-Unit lending, elastic capacity, the array-backed fast path and cross-node SP
-wait.
+The array-backed fast path and cross-node SP wait.
 """
-from repro_torch.core import (baselines, clock, dispatcher, fleet, forecast,
-                              ilp, monitor, orchestrator, placement, profiler,
-                              request, runtime, simulator, trident, workloads)
+from repro_torch.core import (baselines, clock, dispatcher, elastic, fleet,
+                              forecast, ilp, lending, monitor, orchestrator,
+                              placement, profiler, request, runtime, simulator,
+                              trident, workloads)
 
-__all__ = ["baselines", "clock", "dispatcher", "fleet", "forecast", "ilp",
-           "monitor", "orchestrator", "placement", "profiler", "request",
-           "runtime", "simulator", "trident", "workloads"]
+__all__ = ["baselines", "clock", "dispatcher", "elastic", "fleet", "forecast",
+           "ilp", "lending", "monitor", "orchestrator", "placement", "profiler",
+           "request", "runtime", "simulator", "trident", "workloads"]

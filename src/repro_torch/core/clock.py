@@ -26,8 +26,11 @@
 * ``Scheduler`` / ``PendingSet`` — the scheduler interface and the
   O(1)-removal pending queue.
 
-Counterpart of ``repro/core/clock.py``: the lending and elastic fields of
-``Lane`` and the array-backed lane state are not ported yet.
+Counterpart of ``repro/core/clock.py``.  ``Lane`` carries the hooks of
+unit lending (its borrowed units and their stage-run ledger) and of elastic
+capacity (draining units, unit tracking on completion events, ``requeue``);
+``EventClock.remove_completions`` revokes in-flight work.  The array-backed
+lane state waits for the array-backed slice.
 """
 from __future__ import annotations
 
@@ -46,11 +49,15 @@ from repro_torch.core.runtime import EngineStats, RuntimeEngine
 WakeSource = Callable[[float], Optional[float]]
 
 # stage-completion event:
-#   (finish, seq, lane, stage, placement type, duration, batch members)
+#   (finish, seq, lane, stage, placement type, duration, batch members,
+#    units)
 # — the whole batch rides along so a simulator can count every finished
-# request, not one per dispatch decision.  Heap order never reaches the
-# members: (finish, seq) is already unique.
-Completion = Tuple[float, int, str, str, str, float, Tuple[Request, ...]]
+# request, not one per dispatch decision.  ``units`` holds the (pipeline,
+# unit) pairs the stage runs on, filled only while a fault injector is live
+# (``Lane.track_units``; core/elastic.py), else ().  Heap order never
+# reaches the members: (finish, seq) is already unique.
+Completion = Tuple[float, int, str, str, str, float, Tuple[Request, ...],
+                   Tuple[Tuple[str, int], ...]]
 
 # Merged completion events (fleet cross-lane batching): a fused stage run
 # spanning several lanes is pushed ONCE with this sentinel in the lane
@@ -60,7 +67,8 @@ Completion = Tuple[float, int, str, str, str, float, Tuple[Request, ...]]
 # lane (the sorted-unique pipelines of the members) and (b) count per-
 # request SLO finishes via each member's own ``pipeline``, in an order
 # independent of PYTHONHASHSEED.  The single-pipeline Simulator never sees
-# the sentinel.
+# the sentinel.  Fault revocation (core/elastic.py) re-pushes a merged event
+# with its revoked members filtered out.
 MERGED_LANE = "*merged*"
 
 
@@ -126,10 +134,11 @@ class EventClock:
 
     def push_completion(self, finish: float, lane: str, stage: str,
                         ptype: str, duration: float,
-                        members: Tuple[Request, ...]) -> None:
+                        members: Tuple[Request, ...],
+                        units: Tuple[Tuple[str, int], ...] = ()) -> None:
         heapq.heappush(self.completions,
                        (finish, self._eseq, lane, stage, ptype, duration,
-                        members))
+                        members, units))
         self._eseq += 1
 
     def pop_due(self, tau: float) -> Sequence[Completion]:
@@ -145,6 +154,21 @@ class EventClock:
         while heap and heap[0][0] <= tau:
             out.append(pop(heap))
         return out
+
+    def remove_completions(self, pred: Callable[[Completion], bool]
+                           ) -> List[Completion]:
+        """Remove and return every in-flight event matching ``pred``: the
+        fault injector's revocation primitive (core/elastic.py), which
+        pulls work off units about to vanish so its requests can be
+        requeued.  The removed events come back sorted by (finish, seq)
+        (seq is unique, so the sort never compares requests)."""
+        removed = [ev for ev in self.completions if pred(ev)]
+        if not removed:
+            return removed
+        self.completions = [ev for ev in self.completions if not pred(ev)]
+        heapq.heapify(self.completions)
+        removed.sort(key=lambda ev: (ev[0], ev[1]))
+        return removed
 
     # -- wake sources ----------------------------------------------------------
 
@@ -300,10 +324,22 @@ class Lane:
         self.throughput: Dict[int, int] = {}
         self.placement_log: List[Tuple[float, Dict[str, int]]] = []
         self._stats_base = EngineStats()   # stats of retired engines
-        # the engine's own plan size (fleet re-partitions set it); a unit id
-        # at or above it would be a borrowed loan slot, which only unit
-        # lending creates
+        # unit lending (core/lending.py): borrowed foreign E/C units by
+        # hosted stage, and how many stage runs landed on them.  base_units
+        # is the engine's own plan size; loan slots live above it.  The
+        # fleet sets track_borrowed while a broker is live.
+        self.borrowed_units: Dict[str, Tuple[int, ...]] = {}
+        self.borrowed_stage_runs: Dict[str, int] = {}
         self.base_units: int = 0
+        self.track_borrowed: bool = False
+        # elastic capacity (core/elastic.py), set by the fleet while a fault
+        # injector is live: completion events carry the (pipeline, unit)
+        # pairs they run on, so revocation can match them
+        self.track_units: bool = False
+        # stage-aware drain: unit id -> loss time while a preemption notice
+        # is live; the dispatcher hands a draining unit only work that
+        # finishes before then
+        self.draining_units: Dict[int, float] = {}
 
     # -- queue ----------------------------------------------------------------
 
@@ -318,6 +354,16 @@ class Lane:
         if clock is not None:
             clock.track_deadline(req.deadline, self.pipeline, req.rid)
 
+    def requeue(self, req: Request,
+                clock: Optional[EventClock] = None) -> None:
+        """Re-admit a request whose dispatched stage events were revoked
+        (core/elastic.py) under its original arrival and deadline, so the
+        SLO keeps charging the original clock, without counting it as a
+        new arrival."""
+        self.pending.add(req)
+        if clock is not None:
+            clock.track_deadline(req.deadline, self.pipeline, req.rid)
+
     # -- dispatch bookkeeping -------------------------------------------------
 
     def record(self, dec, times: Dict[str, Tuple[float, float]],
@@ -328,7 +374,8 @@ class Lane:
         Stages in ``dec.xl_skip`` (cross-lane fused runs) still stamp
         ``stage_done`` for the batch members, but push no per-lane event —
         the fleet batcher already pushed ONE merged event (``MERGED_LANE``)
-        for the whole fused launch."""
+        for the whole fused launch — and count no borrowed-unit runs here:
+        the fused launch's borrowed run is charged to its *host* lane."""
         members = (dec.request,) + tuple(dec.corequests)
         skip = getattr(dec, "xl_skip", ())
         for s, (start, fin) in times.items():
@@ -340,9 +387,24 @@ class Lane:
                   dec.e_units if s == "E" else dec.c_units)
             ptype = self.engine.plan.placements[su[0]]
             clock.push_completion(fin, self.pipeline, s, ptype, fin - start,
-                                  members)
+                                  members,
+                                  tuple((self.pipeline, g) for g in su)
+                                  if self.track_units else ())
         self.vr_histogram[dec.vr_type] = (self.vr_histogram.get(dec.vr_type, 0)
                                           + len(members))
+        if self.track_borrowed:
+            # lending's invariant: Diffuse never lands on a borrowed unit.
+            # D is counted, not only asserted, so the result's
+            # diffuse_runs_on_borrowed_units can trip a check under -O too
+            for s, units in (("E", dec.e_units), ("D", dec.d_units),
+                             ("C", dec.c_units)):
+                if s in skip:
+                    continue
+                if any(g >= self.base_units for g in units):
+                    self.borrowed_stage_runs[s] = \
+                        self.borrowed_stage_runs.get(s, 0) + 1
+            assert "D" not in self.borrowed_stage_runs, \
+                "diffuse dispatched to a borrowed foreign unit"
 
     def on_completion(self, t: float, stage: str, ptype: str,
                       duration: float) -> None:

@@ -19,9 +19,11 @@ selection is a grouped ILP with multi-dimensional columns
 fused run is charged as one merged completion event (``clock.MERGED_LANE``)
 whose members span lanes.
 
-Counterpart of ``repro/core/dispatcher.py``: the incremental re-solve, the
-decode offload onto borrowed units (unit lending) and elastic draining are
-not ported yet.
+Counterpart of ``repro/core/dispatcher.py``, with the hooks of unit
+lending (borrowed E/C units as discounted auxiliary candidates, the decode
+offload onto them, a fused launch's borrowed run charged to its host lane)
+and of elastic capacity (the stage-aware drain of doomed units).  The
+incremental re-solve waits for the array-backed slice.
 """
 from __future__ import annotations
 
@@ -47,6 +49,10 @@ EFF_THRESHOLD = 0.8                            # E_{r,k} filter
 # mean latency.  A small per-second penalty (<< C_on - C_late) breaks the
 # tie toward faster configs without ever flipping an SLO decision.
 GAMMA_TIME = 2.0
+# Unit lending: reward discount on options whose auxiliary stage would land
+# on a borrowed foreign unit (well below C_LATE, so a borrow never outbids a
+# native on-time config, but the solver still prefers native capacity).
+BORROW_PENALTY = 25.0
 
 
 @dataclasses.dataclass
@@ -152,12 +158,22 @@ class Dispatcher:
             self._feas[key] = cached
         return cached
 
+    # auxiliary stages each Virtual Replica routes off-primary (Table 3)
+    _VR_AUX = {0: (), 1: ("E",), 2: ("C",), 3: ("E", "C")}
+
     def build_options(self, reqs: Sequence[Request], tau: float,
-                      idle_by_type: Dict[str, int]
+                      idle_by_type: Dict[str, int],
+                      aux_penalty: Optional[Dict[str, float]] = None
                       ) -> Tuple[List[List[ilp.Option]], List[int]]:
         budgets = [idle_by_type.get(primary_of_vr(v), 0) for v in range(4)]
+        vr_pen = [0.0] * 4
+        if aux_penalty:
+            # lending: a VR whose auxiliary stage would land on a borrowed
+            # foreign unit carries the borrow discount
+            vr_pen = [sum(aux_penalty.get(s, 0.0) for s in self._VR_AUX[v])
+                      for v in range(4)]
         options: List[List[ilp.Option]] = []
-        # per-call class cache: budgets and tau are fixed for the whole
+        # per-call class cache: budgets, tau and vr_pen are fixed for the whole
         # call, so the budget-filtered triples, the best/worst predicted
         # finishes, and — for requests every config beats the deadline of —
         # the complete option list are functions of the request *class*
@@ -199,7 +215,8 @@ class Dispatcher:
                         f = tau + rt
                         b = base[vr]
                         if b is None:
-                            b = base[vr] = C_ON - self._q_ri(req, vr)
+                            b = base[vr] = (C_ON - self._q_ri(req, vr)
+                                            - vr_pen[vr])
                         opts.append(ilp.Option(
                             dim=vr, usage=k,
                             reward=b - GAMMA_TIME * (f - tau)))
@@ -219,7 +236,7 @@ class Dispatcher:
                 if f <= deadline or f == best_finish:
                     b = base[vr]
                     if b is None:
-                        b = base[vr] = w - self._q_ri(req, vr)
+                        b = base[vr] = w - self._q_ri(req, vr) - vr_pen[vr]
                     opts.append(ilp.Option(
                         dim=vr, usage=k,
                         reward=b - GAMMA_TIME * (f - tau)))
@@ -287,15 +304,32 @@ class Dispatcher:
         return None
 
     def _aux_units(self, plan: PlacementPlan, stage: str, k: int,
-                   idle_units: set, free_at: Dict[int, float], tau: float
+                   idle_units: set, free_at: Dict[int, float], tau: float,
+                   borrowed: Optional[set] = None,
+                   exclude: Optional[Dict[int, float]] = None
                    ) -> Tuple[int, ...]:
-        """Idle-or-earliest-free auxiliary units for E/C (Monitor-reported)."""
+        """Idle-or-earliest-free auxiliary units for E/C (Monitor-reported).
+
+        With loans out (``borrowed``), native units win ties: a borrowed
+        unit is taken only when it is strictly the better host.
+        ``exclude`` steers auxiliary work off draining units, but only while
+        a healthy candidate exists: a lane whose sole auxiliary sits on a
+        doomed node keeps serving through it."""
         cands = plan.units_of_type(stage)
+        if exclude:
+            healthy = [g for g in cands if g not in exclude]
+            if healthy:
+                cands = healthy
         if not cands:
             return ()
         # nsmallest == sorted(...)[:k] (stable, documented), at O(n) instead
         # of O(n log n) — k is a profiled optimal degree, i.e. tiny, while
         # the candidate list is every auxiliary unit of the stage type
+        if borrowed:
+            return tuple(heapq.nsmallest(k, cands,
+                                         key=lambda g: (g not in idle_units,
+                                                        free_at.get(g, tau),
+                                                        g in borrowed)))
         return tuple(heapq.nsmallest(k, cands,
                                      key=lambda g: (g not in idle_units,
                                                     free_at.get(g, tau))))
@@ -303,7 +337,9 @@ class Dispatcher:
     # -- main entry ---------------------------------------------------------------
 
     def dispatch(self, pending: Sequence[Request], plan: PlacementPlan,
-                 idle_units: set, free_at: Dict[int, float], tau: float
+                 idle_units: set, free_at: Dict[int, float], tau: float,
+                 borrowed: Optional[Dict[str, Tuple[int, ...]]] = None,
+                 draining: Optional[Dict[int, float]] = None
                  ) -> List[DispatchDecision]:
         """One dispatch round over the pending set.
 
@@ -311,6 +347,14 @@ class Dispatcher:
         units: never mutated here — grants consume from a private ``avail``
         copy — and only valid until the caller applies the returned
         decisions.
+
+        ``borrowed`` (unit lending, core/lending.py) holds the lane's
+        borrowed foreign units by hosted stage: E/C-only candidates, whose
+        options carry the borrow discount, and the pool of the decode
+        offload.  ``draining`` maps doomed unit ids to their loss time (a
+        preemption notice is live, core/elastic.py): a draining unit hosts
+        only a primary launch that finishes before its loss, and auxiliary
+        stages avoid it.  ``None`` for both takes the plain path.
         """
         # candidate set scales with idle capacity: a fixed cap would only
         # ever show the solver the oldest (often already-late) requests
@@ -319,9 +363,46 @@ class Dispatcher:
         reqs = sorted(pending, key=lambda r: r.deadline)[:cap]
         if not reqs:
             return []
-        idle_by_type = {t: len(idle_units & plan.type_set(t))
+        # a draining unit counts toward its type's budget only while its
+        # remaining window can still host the *shortest* candidate launch
+        # of that type: promise more and the solver grants work that unit
+        # selection must refuse; promise less and doomed capacity idles
+        budget_idle = idle_units
+        if draining:
+            min_rt: Dict[str, float] = {}
+            seen_cls = set()
+            for req in reqs:
+                ck = (req.key(), req.cond_len)
+                if ck in seen_cls:
+                    continue
+                seen_cls.add(ck)
+                for rt, vr, _k in self._feas_configs(req):
+                    t = primary_of_vr(vr)
+                    if t not in min_rt or rt < min_rt[t]:
+                        min_rt[t] = rt
+            inf = float("inf")
+            budget_idle = idle_units - {
+                g for g, land in draining.items()
+                if land - tau < min_rt.get(plan.placements[g], inf)}
+        idle_by_type = {t: len(budget_idle & plan.type_set(t))
                         for t in PRIMARY_PLACEMENTS}
-        options, budgets = self.build_options(reqs, tau, idle_by_type)
+        # unit lending: borrowed foreign units are E/C-only candidates; an
+        # option whose auxiliary stage would land on one (no idle native
+        # auxiliary of that type) carries the borrow discount
+        borrowed_all: set = set()
+        aux_penalty: Optional[Dict[str, float]] = None
+        if borrowed:
+            borrowed_all = {g for gs in borrowed.values() for g in gs}
+            aux_penalty = {}
+            for s in ("E", "C"):
+                native_idle = any(g in idle_units and g not in borrowed_all
+                                  for g in plan.units_of_type(s))
+                lent_idle = any(free_at.get(g, 0.0) <= tau
+                                for g in borrowed.get(s, ()))
+                if lent_idle and not native_idle:
+                    aux_penalty[s] = BORROW_PENALTY
+        options, budgets = self.build_options(reqs, tau, idle_by_type,
+                                              aux_penalty)
         if self.aggregate:
             choices, stats = self._solve_grouped(reqs, options, budgets)
         else:
@@ -394,7 +475,16 @@ class Dispatcher:
         for ri, opt in sorted(choices.items(), key=lambda kv: -kv[1].reward):  # detlint: ignore[DET004] choices is solver-walk-ordered; equal-reward order is BENCH-byte-frozen
             req = reqs[ri]
             prim = primary_of_vr(opt.dim)
-            units = _take(prim, opt.usage)
+            if draining:
+                # stage-aware drain: a doomed unit is eligible only when this
+                # launch lands before the unit does (plain selection, no
+                # pools: only inside a notice window)
+                rt = self._req_runtime(req, opt.dim, opt.usage)
+                elig = {g for g in avail
+                        if g not in draining or tau + rt <= draining[g]}
+                units = self.select_units(plan, prim, opt.usage, elig)
+            else:
+                units = _take(prim, opt.usage)
             if units is None:
                 continue   # stay undispatched for next round (paper §6.2)
             avail -= set(units)
@@ -403,21 +493,84 @@ class Dispatcher:
                 e_units = units
             else:
                 ke = self.prof.optimal_degree(req, "E")
-                e_units = self._aux_units(plan, "E", ke, avail, free_at, tau)
+                e_units = self._aux_units(plan, "E", ke, avail, free_at, tau,
+                                          borrowed_all or None,
+                                          exclude=draining)
             # Γ^C: subset of D's units when co-resident, else aux ⟨C⟩
             kc = self.prof.optimal_degree(req, "C")
             if "C" in prim:
                 c_units = units[: max(1, min(kc, len(units)))]
             else:
-                c_units = self._aux_units(plan, "C", kc, avail, free_at, tau)
+                c_units = self._aux_units(plan, "C", kc, avail, free_at, tau,
+                                          borrowed_all or None,
+                                          exclude=draining)
             if not e_units or not c_units:
                 avail |= set(units)
-                _give_back(prim, units)
+                if not draining:
+                    _give_back(prim, units)
                 continue   # no auxiliary capacity -> undispatched this tick
             decisions.append(DispatchDecision(
                 request=req, vr_type=opt.dim, degree=opt.usage,
                 d_units=units, e_units=tuple(e_units), c_units=tuple(c_units)))
+        if borrowed:
+            self._offload_decode(decisions, pending, borrowed, free_at, tau)
         return decisions
+
+    def _offload_decode(self, decisions: List[DispatchDecision],
+                        pending: Sequence[Request],
+                        borrowed: Dict[str, Tuple[int, ...]],
+                        free_at: Dict[int, float], tau: float) -> None:
+        """Work-conserving decode offload onto borrowed foreign units.
+
+        While requests are still left waiting after this round's grants, a
+        decision whose primary co-hosts C (⟨EDC⟩/⟨DC⟩) hands its Decode to
+        an idle borrowed ⟨C⟩ unit instead of merging it: the primary frees
+        t_C earlier.  D never moves."""
+        pool = [g for g in borrowed.get("C", ())
+                if free_at.get(g, 0.0) <= tau]
+        if not pool:
+            return
+        granted = sum(d.batch for d in decisions)
+        if len(pending) <= granted:
+            return   # no backlog: merged execution stays strictly better
+        # offload the heaviest decodes first: they strand the most time
+        order = sorted(
+            (d for d in decisions
+             if "C" in primary_of_vr(d.vr_type)
+             and set(d.c_units) <= set(d.d_units)),
+            key=lambda d: -self.prof.stage_time(
+                d.request, "C", len(d.c_units) * self.prof.k_min))
+        for dec in order:
+            if not pool:
+                return
+            req = dec.request
+            kc = min(self.prof.optimal_degree(req, "C"), len(dec.c_units))
+            take = pool[:max(1, min(kc, len(pool)))]
+            if not self.prof.fits(req, "C", len(take)):
+                continue
+            # degree- and deadline-aware: a thinner pool slows this
+            # request's decode, and the offload pays the inter-node latent
+            # push (and a possible communicator build) that merged execution
+            # avoids — degrade only when the request still makes its SLO,
+            # or misses it either way
+            k = self.prof.k_min
+            t_merged = self.prof.stage_time(req, "C", kc * k)
+            t_off = self.prof.stage_time(req, "C", len(take) * k)
+            q_dc = self.prof.comm_bytes(req, "DC")
+            t_push = (self.prof.transfer_time(q_dc, intra_node=False)
+                      + self.prof.transfer_time(q_dc, intra_node=True)
+                      + self.prof.hw.comm_group_init)
+            runtime = self._req_runtime(req, dec.vr_type, dec.degree)
+            # start when the granted primary units actually free up, not at
+            # tau: a queueing-blind estimate would bless offloads that push
+            # the real finish past the deadline
+            start = max([tau] + [free_at.get(g, tau) for g in dec.d_units])
+            fin_merged = start + runtime
+            fin_off = fin_merged - t_merged + t_off + t_push
+            if fin_off > req.deadline and fin_merged <= req.deadline:
+                continue
+            dec.c_units = tuple(take)
+            del pool[:len(take)]
 
 
 class CrossLaneBatcher:
@@ -463,9 +616,14 @@ class CrossLaneBatcher:
         self.merges = 0                     # fused launches charged
         self.merged_requests = 0            # batch items across all fusions
         # host units of un-drained fused launches: (host pid, unit) ->
-        # latest fused finish — what ``fused_busy`` answers from; entries
-        # are pruned lazily
+        # latest fused finish.  The lending broker asks ``fused_busy``
+        # before it force-returns a borrowed host unit; entries are pruned
+        # lazily
         self.inflight_hosts: Dict[Tuple[str, int], float] = {}
+        # set by the fleet while a fault injector is live: merged events
+        # then carry their host (pipeline, unit) pairs so revocation can
+        # match them (core/elastic.py)
+        self.track_units: bool = False
 
     # -- candidate assembly ---------------------------------------------------
 
@@ -599,14 +757,12 @@ class CrossLaneBatcher:
             key=lambda r: (r.pipeline, r.rid)))
 
     @staticmethod
-    def _charge_borrowed(host, host_units) -> None:
-        """A fused launch on a borrowed (unit-lending) host unit is charged
-        to the host lane's borrow ledger in the reference.  No unit is ever
-        on loan until lending is ported, so reaching one is a fault."""
-        if any(g >= host.base_units for g in host_units):
-            raise NotImplementedError(
-                "fused launch on a borrowed unit: unit lending is a later "
-                "slice of the port")
+    def _charge_borrowed(host, host_units, stage: str) -> None:
+        """A fused launch spanning a borrowed (unit-lending) unit counts ONE
+        stage run against the host lane's borrow ledger."""
+        if host.track_borrowed and any(g >= host.base_units for g in host_units):
+            host.borrowed_stage_runs[stage] = \
+                host.borrowed_stage_runs.get(stage, 0) + 1
 
     def _launch_e(self, fused, host, host_units, n_total: float, T: float,
                   tau: float, clock) -> None:
@@ -618,10 +774,12 @@ class CrossLaneBatcher:
         fin = start + T
         eng._reserve(host_units, fin)
         eng.stats.dispatches += 1
-        self._charge_borrowed(host, host_units)
+        self._charge_borrowed(host, host_units, "E")
         ptype = eng.plan.placements[host_units[0]]
         clock.push_completion(fin, MERGED_LANE, "E", ptype, T,
-                              self._members(fused))
+                              self._members(fused),
+                              tuple((host.pipeline, g) for g in host_units)
+                              if self.track_units else ())
         self._note_inflight(host.pipeline, host_units, fin)
         for lane, dec in fused:
             dec.xl_efused = (start, fin, lane is host, host_units)
@@ -685,12 +843,15 @@ class CrossLaneBatcher:
             fin = start + T
             eng._reserve(host_units, fin)
             eng.stats.dispatches += 1
-            self._charge_borrowed(host, host_units)
+            self._charge_borrowed(host, host_units, "C")
             members = self._members(fused)
             for r in members:
                 r.stage_done["C"] = fin
             ptype = eng.plan.placements[host_units[0]]
-            clock.push_completion(fin, MERGED_LANE, "C", ptype, T, members)
+            clock.push_completion(fin, MERGED_LANE, "C", ptype, T, members,
+                                  tuple((host.pipeline, g)
+                                        for g in host_units)
+                                  if self.track_units else ())
             self._note_inflight(host.pipeline, host_units, fin)
             self.merges += 1
             self.merged_requests += n_total
@@ -705,9 +866,9 @@ class CrossLaneBatcher:
 
     def fused_busy(self, pid: str, unit: int, tau: float) -> bool:
         """Is a fused launch hosted on ``(pid, unit)`` still un-drained at
-        ``tau``?  A host unit inside a live ``MERGED_LANE`` event must not
-        change hands until the merge drains (the guard unit lending's
-        force-return consults); stale entries are pruned lazily."""
+        ``tau``?  The lending broker's force-return guard: a borrowed host
+        unit inside a live ``MERGED_LANE`` event must not change hands until
+        the merge drains; stale entries are pruned lazily."""
         fin = self.inflight_hosts.get((pid, unit))
         if fin is None:
             return False

@@ -42,19 +42,27 @@ re-derived from the live traffic mix.
 Wake sources (the clock.py standard: each subsystem registers one
 ``tau -> Optional[next-wake-time]`` closure, once, independent of lane
 count): the next arrival, one Monitor-window boundary source per
-replace-capable lane, the FleetMonitor demand/SLO window boundaries when
-the scheduler can re-partition, and the predictive scheduler's
-``forecast_wake`` when ``mode="predictive"``.  Trigger *gates* stay in the
+replace-capable lane, the FleetMonitor demand/SLO/lending window
+boundaries when the scheduler can re-partition, the lending broker's
+loan-expiry and lending-window source when lending, the predictive
+scheduler's ``forecast_wake`` when ``mode="predictive"``, and the fault
+injector's capacity events when elastic.  Trigger *gates* stay in the
 schedulers: a wake-up is only an opportunity to look.
+
+Two options reshape capacity between re-partitions.  ``lending``
+(core/lending.py): an idle unit of one pipeline hosts E/C stage work for a
+backlogged other, paying its reloads both ways (``LendingBroker``).
+``elastic`` (core/elastic.py): a seeded schedule of joins, preemptions
+with notice, and degraded nodes plays through a ``FaultInjector``; the
+fleet drains, requeues and re-partitions onto the pool that survives.
 
 The single-pipeline system is the 1-pipeline special case: a fleet with one
 registered pipeline reproduces ``Simulator`` + ``TridentScheduler``.
 
-Counterpart of ``repro/core/fleet.py``.  Unit lending, elastic capacity,
-the array-backed fast path (``array_state``, ``incremental_ilp``,
-``step_changed_lanes_only``) and cross-node SP are later slices of the
-port: setting any of them raises ``NotImplementedError``, and the
-``FleetResult`` fields only they set read 0.
+Counterpart of ``repro/core/fleet.py``.  The array-backed fast path
+(``array_state``, ``incremental_ilp``, ``step_changed_lanes_only``) and
+cross-node SP are later slices of the port: setting any of them raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -67,7 +75,9 @@ from repro_torch.core import workloads
 from repro_torch.core.clock import (MERGED_LANE, ClockConfig, EventClock, Lane,
                                     monitor_boundary_source, replace_capable)
 from repro_torch.core.dispatcher import CrossLaneBatcher
+from repro_torch.core.elastic import FaultInjector
 from repro_torch.core.forecast import DemandForecaster, rank_classes, tv_distance
+from repro_torch.core.lending import LendingBroker
 from repro_torch.core.monitor import FleetMonitor
 from repro_torch.core.orchestrator import Orchestrator
 from repro_torch.core.placement import PlacementPlan
@@ -79,8 +89,6 @@ from repro_torch.core.trident import TridentScheduler
 
 # the FleetConfig switches of later slices, and the slice each waits for
 CUT_OPTIONS = {
-    "lending": "unit lending",
-    "elastic": "elastic capacity",
     "array_state": "the array-backed fast path",
     "incremental_ilp": "the array-backed fast path",
     "step_changed_lanes_only": "the array-backed fast path",
@@ -135,6 +143,26 @@ class PipelineRegistry:
         return pipeline_id in self._profs
 
 
+@dataclasses.dataclass(frozen=True)
+class LendableUnit:
+    """One unit of the fleet plan that may host E/C stage work for another
+    pipeline between re-partitions (cross-pipeline unit lending).
+
+    ``borrow_cost`` maps (borrower pipeline, hosted stage) to the weight-swap
+    latency the borrower pays when the unit changes hands; ``return_cost``
+    is what the lender pays to reload its own weights on return — advisory
+    (a map-build-time estimate): the broker recharges the actual return
+    reload from the lender's live plan at close, since a lane re-placement
+    may retype the unit while it is on loan."""
+    pipeline: str
+    unit: int
+    ptype: str
+    aux_class: bool                    # E/C-class unit (preferred stock)
+    node: int
+    borrow_cost: Dict[Tuple[str, str], float]
+    return_cost: float
+
+
 @dataclasses.dataclass
 class FleetPlacementPlan:
     """One placement plan spanning the whole cluster: contiguous chip
@@ -159,6 +187,56 @@ class FleetPlacementPlan:
         for tag in self.tagged_units():
             hist[tag] = hist.get(tag, 0) + 1
         return hist
+
+    def unit_chips(self, pipeline: str, unit: int) -> Tuple[int, int]:
+        """[lo, hi) chip span of one scheduling unit."""
+        lo, _ = self.chip_ranges[pipeline]
+        k = self.subplans[pipeline].unit_size
+        return (lo + unit * k, lo + (unit + 1) * k)
+
+    def node_of_unit(self, pipeline: str, unit: int) -> int:
+        """Cluster-global node id of one scheduling unit."""
+        return self.unit_chips(pipeline, unit)[0] // self.chips_per_node
+
+    def lending_map(self, registry: "PipelineRegistry"
+                    ) -> Dict[int, List[LendableUnit]]:
+        """Per-node map of lendable units (cross-pipeline unit lending).
+
+        A unit is lendable to borrower B iff its chip span can hold one of
+        B's scheduling units (``unit_size`` covers B's) — the hosted stage is
+        always E or C, never D, so B's diffuse placement is untouched.
+        Aux-class (⟨E⟩/⟨C⟩) units are the preferred stock; primary-class
+        units are listed too and the broker only taps them when the lender
+        has idle surplus.  Costs come from ``Profiler.stage_load_time`` via
+        the host path — the same currency re-partition swaps are charged in,
+        so the min-hold policy can be compared against it directly."""
+        out: Dict[int, List[LendableUnit]] = {}
+        for pid, sub in self.subplans.items():
+            lender_prof = registry.profiler(pid)
+            for g, ptype in enumerate(sub.placements):
+                if sub.is_extended(g):
+                    continue   # borrowed overlay slots are not lendable stock
+                costs: Dict[Tuple[str, str], float] = {}
+                for bid in registry.pipelines:
+                    if bid == pid:
+                        continue
+                    bsub = self.subplans.get(bid)
+                    if bsub is not None and bsub.unit_size > sub.unit_size:
+                        continue   # span too small for one borrower unit
+                    bprof = registry.profiler(bid)
+                    for s in ("E", "C"):
+                        costs[(bid, s)] = bprof.stage_load_time(
+                            s, via_host=True)
+                if not costs:
+                    continue
+                ret_cost = sum(lender_prof.stage_load_time(s, via_host=True)
+                               for s in ptype)
+                node = self.node_of_unit(pid, g)
+                out.setdefault(node, []).append(LendableUnit(
+                    pipeline=pid, unit=g, ptype=ptype,
+                    aux_class=ptype in ("E", "C"), node=node,
+                    borrow_cost=costs, return_cost=ret_cost))
+        return out
 
 
 class FleetOrchestrator:
@@ -286,7 +364,24 @@ class FleetConfig:
                                       # as a kernel wake source.  Opt-in:
                                       # extra wake-ups shift heartbeat phase
     idle_window_wakeups: bool = False # Monitor-window wake-ups while fully
-                                      # idle (the stale-window fix)
+                                      # idle (the stale-window fix); lending
+                                      # forces it on (loans must return
+                                      # during idle gaps)
+    # -- cross-pipeline unit lending (core/lending.py), default OFF ----------
+    lending: bool = False
+    lend_min_hold: float = 45.0       # a loan is held at least this long (s)
+    lend_win: float = 20.0            # pressure window for borrow/return (s)
+    # pressure is queued chip-seconds of work per owned chip (windowed mean)
+    lend_min_pressure: float = 0.5    # borrow above this; lender reclaims at it
+    lend_low_pressure: float = 0.05   # drained-borrower / busy-lender bound
+    lend_reserve: int = 2             # idle units a lender always keeps
+    lend_util_target: float = 0.4     # a lender keeps busy_mean/target units
+                                      # for itself; only the surplus is stock
+    lend_max_loans: int = 32          # concurrent loans per borrower
+    lend_demand_frac: float = 8.0     # loan target per second of pressure
+    lend_min_stage_s: float = 0.5     # borrow only when the hosted stage is
+                                      # worth at least this long per request
+                                      # (reloads never pay for ms decodes)
     # -- predictive re-partitioning (core/forecast.py), used only when the
     # fleet runs mode="predictive" ------------------------------------------
     forecast_bin: float = 10.0        # rate-history bin width (s)
@@ -318,12 +413,29 @@ class FleetConfig:
                                       # replaces BOTH the fused launch's
                                       # shared batch budget and the
                                       # per-lane curve caps
-    # -- later slices of the port: each raises when set (CUT_OPTIONS) ------
-    lending: bool = False             # cross-pipeline unit lending
-    elastic: bool = False             # elastic, failure-prone capacity
+    # -- the array-backed fast path, a later slice of the port: each raises
+    # when set (CUT_OPTIONS) -------------------------------------------------
     array_state: bool = False         # array-backed lane state
     incremental_ilp: bool = False     # persisted dispatch model across ticks
     step_changed_lanes_only: bool = False  # O(changed-lanes) fleet stepping
+    # -- elastic, failure-prone capacity (core/elastic.py), default OFF: the
+    # FaultInjector is never constructed ------------------------------------
+    elastic: bool = False             # play elastic_schedule through a
+                                      # FaultInjector wake source
+    elastic_schedule: Tuple = ()      # CapacityEvents (core/workloads.py
+                                      # builds the preemption-storm and
+                                      # region-evacuation schedules)
+    elastic_drain: bool = True        # act on preemption notices: doomed
+                                      # units drain stage-aware (only work
+                                      # landing before the loss), in-flight
+                                      # work that would outlive it requeues
+                                      # ahead of the loss (the drain-unaware
+                                      # arm turns this off)
+    elastic_prewarm: bool = True      # stage target weights onto announced
+                                      # join capacity during the lead window
+    degrade_detect_ratio: float = 1.6 # quarantine a unit whose per-run mean
+                                      # exceeds this x its pool mean
+    degrade_min_samples: int = 6      # per-unit samples before quarantine
 
     def __post_init__(self):
         for option, slice_name in CUT_OPTIONS.items():
@@ -762,7 +874,7 @@ class FleetResult:
     swap_cost_s: float
     units_reloaded: int
     sched_wakeups: int
-    # cross-pipeline unit lending (a later slice of the port: read 0)
+    # cross-pipeline unit lending (zeros unless FleetConfig.lending)
     loans: int = 0
     borrowed_unit_seconds: float = 0.0
     lend_swap_cost_s: float = 0.0
@@ -773,32 +885,35 @@ class FleetResult:
     prewarm_cost_s: float = 0.0        # staging reload time charged
     prewarm_hits: int = 0              # cutover units whose reload was
                                        # fully averted by staged weights
-    prewarm_loan_returns: int = 0      # loans force-closed by staging (0)
+    prewarm_loan_returns: int = 0      # loans force-closed by staging
     predictive_repartitions: int = 0   # swaps fired by the forecaster
     # cross-lane dynamic batching (zeros unless
     # FleetConfig.cross_lane_batching)
     cross_lane_merges: int = 0         # fused multi-lane launches charged
     cross_lane_merged_requests: int = 0  # batch items across all fusions
-    # elastic capacity (a later slice of the port: read 0; a fixed pool
+    # elastic capacity (zeros unless FleetConfig.elastic; a fixed pool
     # reports its size as the surviving pool)
-    capacity_events: int = 0
+    capacity_events: int = 0           # join/preempt/degrade/recover landed
     nodes_joined: int = 0
     nodes_lost: int = 0
-    requeued_requests: int = 0
-    drained_units: int = 0
-    quarantined_units: int = 0
-    elastic_prewarm_chips: int = 0
+    requeued_requests: int = 0         # in-flight work revoked + requeued
+    drained_units: int = 0             # units drained on preemption notice
+    quarantined_units: int = 0         # degraded units detected + removed
+    elastic_prewarm_chips: int = 0     # announced-join chips staged ahead
     final_chips: int = 0               # surviving pool size at run end
 
     def summary(self) -> str:
         if self.oom:
             return f"{self.scheduler:15s} OOM (no feasible fleet plan)"
+        lend = (f"  loans={self.loans} "
+                f"borrowed={self.borrowed_unit_seconds:.0f}unit-s"
+                if self.loans else "")
         return (f"{self.scheduler:15s} SLO={self.slo_attainment * 100:5.1f}%  "
                 f"goodput={self.goodput:6.2f}/s  "
                 f"mean={self.mean_latency:7.2f}s  "
                 f"p95={self.p95_latency:7.2f}s  "
                 f"fin={self.n_finished}/{self.n_requests}  "
-                f"swaps={len(self.repartitions) - 1}")
+                f"swaps={len(self.repartitions) - 1}{lend}")
 
 
 class FleetSimulator:
@@ -817,7 +932,8 @@ class FleetSimulator:
         self.cfg = cfg or FleetConfig()
         assert all(r.pipeline in registry for r in self.trace), \
             "trace contains requests for unregistered pipelines"
-        self.fleet_monitor = FleetMonitor(t_win=self.cfg.t_win)
+        self.fleet_monitor = FleetMonitor(t_win=self.cfg.t_win,
+                                          lend_win=self.cfg.lend_win)
         self.lanes: Dict[str, Lane] = {}
         self.plan: Optional[FleetPlacementPlan] = None
         trace_end = self.trace[-1].arrival if self.trace else 0.0
@@ -833,6 +949,11 @@ class FleetSimulator:
         self._repartition_capable = (
             type(scheduler).maybe_repartition
             is not FleetScheduler.maybe_repartition)
+        # unit lending (core/lending.py): the broker exists only when the
+        # knob is on
+        self.broker: Optional[LendingBroker] = None
+        if self.cfg.lending:
+            self.broker = LendingBroker(self.cfg, registry)
         # predictive pre-warm (core/forecast.py): chip -> (target pipeline,
         # staged stages, staging time).  Empty — and the rate history
         # disabled — unless the scheduler carries a forecaster.
@@ -845,6 +966,13 @@ class FleetSimulator:
         self._xl = None
         if self.cfg.cross_lane_batching:
             self._xl = CrossLaneBatcher(max_batch=self.cfg.cross_lane_max_batch)
+        # elastic capacity (core/elastic.py): like the broker and the
+        # batcher, the injector exists only when the knob is on
+        self.injector: Optional[FaultInjector] = None
+        if self.cfg.elastic:
+            self.injector = FaultInjector(self.cfg)
+            if self._xl is not None:
+                self._xl.track_units = True
         self._class_hist = (self.uses_forecast
                             and self.cfg.cross_lane_batching)
         if self._class_hist:
@@ -857,6 +985,8 @@ class FleetSimulator:
         self.prewarm_cost_s = 0.0
         self.prewarm_units = 0
         self.prewarm_hits = 0
+        self.prewarm_loan_returns = 0
+        self._tau_last = 0.0
 
     # ---------------------------------------------------------------- helpers
 
@@ -878,9 +1008,10 @@ class FleetSimulator:
 
     def _register_wake_sources(self) -> None:
         self.clock.add_source(self._next_arrival)
-        # stale-window fix: with idle_window_wakeups, Monitor-window
+        # stale-window fix: with idle_window_wakeups (forced on by lending:
+        # loans must be able to return during an idle gap), Monitor-window
         # boundaries stay wake-up sources even while nothing is pending
-        idle_wake = self.cfg.idle_window_wakeups
+        idle_wake = self.cfg.idle_window_wakeups or self.cfg.lending
         for lane in self.lanes.values():
             if replace_capable(lane.sched):
                 self.clock.add_source(monitor_boundary_source(
@@ -892,10 +1023,18 @@ class FleetSimulator:
             self.clock.add_source(monitor_boundary_source(
                 self.fleet_monitor,
                 lambda: self._work_in_flight() or idle_wake))
+        if self.broker is not None:
+            # borrow/return events: min-hold expiries and lend-window
+            # re-checks while any loan is outstanding
+            self.clock.add_source(self.broker.next_wake)
         if self.uses_forecast:
             # predictive pre-warm events: rate-history bin boundaries (fits
             # and staging only move there) and the armed shift time
             self.clock.add_source(self.fleet_sched.forecast_wake)
+        if self.injector is not None:
+            # capacity events: join/preempt notices and landings fire at
+            # exact schedule times in both clock modes
+            self.clock.add_source(self.injector.next_wake)
         if self.cfg.scheduler_wake_hooks:
             self.clock.add_source(
                 lambda tau: self.fleet_sched.next_wake(self, tau))
@@ -925,6 +1064,8 @@ class FleetSimulator:
                 proactive_push=self.cfg.proactive_push,
                 adjust_on_dispatch=self.cfg.adjust_on_dispatch)
             lane.base_units = len(lane.engine.units)
+            lane.track_borrowed = self.broker is not None
+            lane.track_units = self.injector is not None
             lane.placement_log.append(
                 (0.0, self.plan.subplans[pid].type_histogram()))
             self.lanes[pid] = lane
@@ -991,7 +1132,12 @@ class FleetSimulator:
         self._ai = ai
 
     def _drain(self, tau: float) -> None:
-        for t, _, pid, s, ptype, dur, members in self.clock.pop_due(tau):
+        inj = self.injector
+        for t, _, pid, s, ptype, dur, members, units in self.clock.pop_due(tau):
+            if inj is not None and units:
+                # degrade detection feed (per-unit vs pool mean); fused
+                # MERGED_LANE durations are skipped inside observe
+                inj.observe(self, pid, s, ptype, dur, members, units, t)
             if pid == MERGED_LANE:
                 # cross-lane fused launch: un-merge the one event back into
                 # per-lane accounting — each participating lane observes the
@@ -1010,36 +1156,49 @@ class FleetSimulator:
                                                      t <= req.deadline)
 
     def _step(self, tau: float) -> None:
+        self._tau_last = tau
+        if self.injector is not None:
+            # capacity events fire before any scheduling this wake-up: a
+            # landed join/loss re-partitions here, a notice drains here
+            self.injector.step(self, tau)
         self.fleet_sched.maybe_prewarm(self, tau)
         budgets = self.fleet_sched.maybe_repartition(self, tau)
         if budgets is not None:
             self._repartition(budgets, tau)
+        if self.broker is not None:
+            self.broker.step(self, tau)
         if self._xl is None:
             for lane in self.lanes.values():
                 lane.step(tau, self.clock,
                           lambda new_plan, t, lane=lane:
                               self._apply_lane_plan(lane, new_plan, t))
-            return
-        # cross-lane batching: decide every lane first, fuse matching
-        # auxiliary runs across lanes, then execute.  Lanes own disjoint
-        # engines and the dispatchers see only their own lane's state, so
-        # decide-all-then-execute-all is equivalent to the interleaved
-        # per-lane stepping above; deferred fused C launches run last, once
-        # every member's decode finish is stamped.
-        lane_decs = [
-            (lane, lane.decide(tau,
-                               lambda new_plan, t, lane=lane:
-                                   self._apply_lane_plan(lane, new_plan, t)))
-            for lane in self.lanes.values()]
-        cgroups = self._xl.plan(lane_decs, tau, self.clock)
-        for lane, decs in lane_decs:
-            lane.execute_decisions(decs, tau, self.clock)
-        self._xl.finalize(cgroups, tau, self.clock)
+        else:
+            # cross-lane batching: decide every lane first, fuse matching
+            # auxiliary runs across lanes, then execute.  Lanes own disjoint
+            # engines and the dispatchers see only their own lane's state,
+            # so decide-all-then-execute-all is equivalent to the
+            # interleaved per-lane stepping above; deferred fused C launches
+            # run last, once every member's decode finish is stamped.
+            lane_decs = [
+                (lane, lane.decide(tau,
+                                   lambda new_plan, t, lane=lane:
+                                       self._apply_lane_plan(lane, new_plan, t)))
+                for lane in self.lanes.values()]
+            cgroups = self._xl.plan(lane_decs, tau, self.clock)
+            for lane, decs in lane_decs:
+                lane.execute_decisions(decs, tau, self.clock)
+            self._xl.finalize(cgroups, tau, self.clock)
+        if self.broker is not None:
+            # sample pressure after dispatch: what is still pending now is
+            # genuine backlog, not the arrivals this wake-up just served
+            self.broker.sample(self, tau)
 
     def _apply_lane_plan(self, lane: Lane, new_plan: PlacementPlan,
                          tau: float) -> None:
-        """A lane-level placement switch: swap the cluster plan's sub-plan
-        and drop pre-warm marks the switch invalidates."""
+        """A lane-level placement switch: drop pre-warm marks the switch
+        invalidates, reattach loan slots (the fresh plan must carry them
+        before the engine sees it), then swap the cluster plan's
+        sub-plan."""
         new_plan.pipeline = lane.pipeline
         if self.prewarmed:
             # staged pre-warm marks describe the *old* unit layout: any
@@ -1058,6 +1217,8 @@ class FleetSimulator:
                     if new_plan.placements[g] != p:
                         for c in range(lo + g * k, lo + (g + 1) * k):
                             self.prewarmed.pop(c, None)
+        if self.broker is not None:
+            self.broker.reattach(lane, new_plan)
         lane.engine.apply_placement(new_plan, tau)
         self.plan.subplans[lane.pipeline] = new_plan
 
@@ -1066,8 +1227,8 @@ class FleetSimulator:
     def _chip_state(self) -> Tuple[Dict[int, float],
                                    Dict[int, Tuple[str, int, frozenset]]]:
         """Per-chip (free time, (owner pipeline, owner unit, resident
-        stages)) over the lanes' units — the inputs both the re-partition
-        reload accounting and the pre-warm staging diff."""
+        stages)) over the lanes' own (non-loan) units — the inputs both the
+        re-partition reload accounting and the pre-warm staging diff."""
         chip_free: Dict[int, float] = {}
         chip_owner: Dict[int, Tuple[str, int, frozenset]] = {}
         for pid, lane in self.lanes.items():
@@ -1153,6 +1314,19 @@ class FleetSimulator:
                     self.lanes[opid].engine.units[ouid].free_at > tau
                     for opid, ouid in per_owner):
                 continue       # owner mid-work: defer to a later bin
+            if self.broker is not None:
+                for opid, ouid in sorted(per_owner):
+                    if self.broker.force_return_unit(self, opid, ouid, tau):
+                        # a lent-out unit scheduled for pre-warm returns its
+                        # loan before anything is staged on its chips: no
+                        # loan may survive the coming cutover
+                        self.prewarm_loan_returns += 1
+                if any(self.broker.unit_on_loan(opid, ouid)
+                       for opid, ouid in sorted(per_owner)):
+                    # a force-return deferred past an un-drained fused
+                    # launch (core/lending.py) leaves the loan open: defer
+                    # this target unit too; the next bin's retry stages it
+                    continue
             for opid, ouid in sorted(per_owner):
                 # sorted: a float sum over a str set is order-sensitive in
                 # the last ulp, and str-set order follows PYTHONHASHSEED
@@ -1166,13 +1340,31 @@ class FleetSimulator:
             staged += 1
         return staged
 
-    def _repartition(self, budgets: Dict[str, int], tau: float) -> None:
+    def _repartition(self, budgets: Dict[str, int], tau: float,
+                     chip_map: Optional[Dict[int, int]] = None) -> None:
         """Move chips between lanes.  Per-chip in-flight work and stage
         residency carry over; units whose pipeline or placement type changed
         hands pay the weight-reload latency before becoming dispatchable —
         unless the predictive scheduler pre-warmed their chips, in which
-        case the staged stages are already loaded and charge nothing."""
+        case the staged stages are already loaded and charge nothing.
+
+        ``chip_map`` (capacity re-partitions after a node loss,
+        core/elastic.py) translates surviving old chip indices into the
+        compacted space; state on unmapped (lost) chips drops out here."""
+        if self.broker is not None:
+            # loans cannot outlive the partition they were struck under:
+            # force-return them first (in-flight borrowed work and the
+            # lender's reload land on the lender's chips via free_at below)
+            self.broker.release_all(self, tau)
         chip_free, chip_owner = self._chip_state()
+        if chip_map is not None:
+            chip_free = {chip_map[c]: v for c, v in chip_free.items()
+                         if c in chip_map}
+            chip_owner = {chip_map[c]: v for c, v in chip_owner.items()
+                          if c in chip_map}
+            self.prewarmed = {chip_map[c]: v
+                              for c, v in self.prewarmed.items()
+                              if c in chip_map}
         recent, measured = self._plan_inputs(tau)
         new_plan = self.orch.generate(recent, budgets, measured)
         if new_plan is None:   # no feasible re-partition: keep the old plan
@@ -1229,11 +1421,48 @@ class FleetSimulator:
         # staged weights were either consumed above or are stale now that
         # the chips changed hands — either way the marks are spent
         self.prewarmed.clear()
+        if self.broker is not None:
+            self.broker.reset_after_repartition(self)
         self.fleet_monitor.last_repartition = tau
         # the swap happened: only now does the partition's demand basis move
         # (an aborted re-partition must leave the mix-shift trigger armed)
         self.fleet_sched.on_repartitioned(self, tau)
         self.repartition_log.append((tau, dict(budgets)))
+        if self.injector is not None:
+            # fresh engines and sub-plans: re-derive the injector's
+            # overlays (slowdowns, quarantines, a pending drain)
+            self.injector.after_repartition(self, tau)
+
+    # -- lending and elastic capacity hooks ------------------------------------
+
+    def _evict_prewarm_unit(self, pid: str, g: int) -> None:
+        """Drop staged pre-warm marks on one unit's chips: the unit was
+        mutated under the marks (lent out, retyped, decommissioned), so
+        they must not count as hits and avert a reload the chips owe."""
+        if not self.prewarmed:
+            return
+        lo, hi = self.plan.unit_chips(pid, g)
+        for c in range(lo, hi):
+            self.prewarmed.pop(c, None)
+
+    def _capacity_repartition(self, tau: float,
+                              chip_map: Optional[Dict[int, int]] = None
+                              ) -> None:
+        """Re-partition to the *current* pool size: a join landed or a
+        preemption compacted the chip space (core/elastic.py).  Capacity
+        re-partitions bypass the mix-shift trigger and its cooldown (the
+        pool changed, not the mix) and size lanes by live windowed demand
+        plus queued backlog.  An infeasible one is fatal: the fleet cannot
+        keep serving a plan sized for chips that no longer exist."""
+        demand = self.fleet_monitor.demand(tau)
+        backlog = self.backlog_weights()
+        weights = {p: demand.get(p, 0.0) + backlog.get(p, 0.0)
+                   for p in self.reg.pipelines}
+        budgets = self.orch.budgets(
+            self.fleet_sched._objective_weights(self, tau, weights))
+        self._repartition(budgets, tau, chip_map=chip_map)
+        assert self.plan.total_chips == self.orch.num_chips, \
+            "no feasible partition for the surviving chip pool"
 
     # ---------------------------------------------------------------- results
 
@@ -1294,6 +1523,32 @@ class FleetSimulator:
                 self.plan.chip_ranges[pid][0]
             per_pipeline[pid] = m
         agg = self._metrics(self.trace, oom_ids, horizon_lat)
+        lend_kw = {}
+        if self.broker is not None:
+            self.broker.finalize(self._tau_last)
+            runs: Dict[str, int] = {}
+            for lane in self.lanes.values():
+                for s, n in lane.borrowed_stage_runs.items():
+                    runs[s] = runs.get(s, 0) + n
+            lend_kw = dict(loans=self.broker.loans_granted,
+                           borrowed_unit_seconds=round(
+                               self.broker.borrowed_unit_seconds, 3),
+                           lend_swap_cost_s=round(self.broker.swap_cost_s, 3),
+                           borrowed_stage_runs=runs)
+        # a fixed pool "survives" at its starting size, so the elastic
+        # off path reports the same field the injector would
+        elastic_kw: Dict = dict(final_chips=self.cfg.num_chips)
+        if self.injector is not None:
+            inj = self.injector
+            elastic_kw = dict(
+                capacity_events=inj.capacity_events,
+                nodes_joined=inj.nodes_joined,
+                nodes_lost=inj.nodes_lost,
+                requeued_requests=inj.requeued_requests,
+                drained_units=inj.drained_units,
+                quarantined_units=inj.quarantined_units,
+                elastic_prewarm_chips=inj.elastic_prewarm_chips,
+                final_chips=inj.live_chips)
         return FleetResult(
             scheduler=self.fleet_sched.name, num_chips=self.cfg.num_chips,
             oom=False, n_requests=len(self.trace),
@@ -1310,12 +1565,13 @@ class FleetSimulator:
             prewarm_units=self.prewarm_units,
             prewarm_cost_s=round(self.prewarm_cost_s, 3),
             prewarm_hits=self.prewarm_hits,
+            prewarm_loan_returns=self.prewarm_loan_returns,
             predictive_repartitions=getattr(self.fleet_sched, "early_fires",
                                             0),
             cross_lane_merges=self._xl.merges if self._xl else 0,
             cross_lane_merged_requests=(self._xl.merged_requests
                                         if self._xl else 0),
-            final_chips=self.cfg.num_chips)
+            **lend_kw, **elastic_kw)
 
 
 # ---------------------------------------------------------------- convenience

@@ -44,8 +44,9 @@ traffic never schedules a pre-warm), the pre-warm cooldown, and
 ``forecast_grace`` (an unconfirmed shift expires; a live shift moving
 away from the prediction drops it immediately).
 
-Counterpart of ``repro/core/forecast.py``: ``stage_announced_capacity``
-(pre-warming announced join capacity) waits for the elastic slice.
+Counterpart of ``repro/core/forecast.py``, with
+``stage_announced_capacity``, which pre-warms the chips of an announced
+join (core/elastic.py).
 """
 from __future__ import annotations
 
@@ -275,6 +276,54 @@ class DemandForecaster:
             return None
         return ShiftPrediction(t_shift=t_shift, confidence=conf,
                                shares=best[0], demand=best[1])
+
+
+def stage_announced_capacity(fleet, tau: float, new_total: int,
+                             land: Optional[float] = None) -> int:
+    """Pre-warm announced-join capacity (core/elastic.py): plan the
+    partition the fleet will want once the announced nodes land and mark
+    each *incoming* chip's target weights as staged while the node boots
+    — incoming chips host no live work yet, so the staging DMA is free,
+    and the join-time re-partition charges no reload for them.
+
+    Marks ``fleet.prewarmed`` in exactly the currency ``stage_prewarm``
+    uses (the re-partition reload accounting consumes both the same
+    way), stamped at ``land`` (the join landing time) so the marks
+    cannot expire inside the announce window.  Chips already in the live
+    pool are untouched — their reloads follow the normal, possibly
+    forecaster-staged path.  Returns the number of incoming chips
+    staged."""
+    orch = fleet.orch
+    old_total = orch.num_chips
+    if new_total <= old_total:
+        return 0
+    recent, measured = fleet._plan_inputs(tau)
+    orch.num_chips = new_total
+    try:
+        demand = fleet.fleet_monitor.demand(tau)
+        backlog = fleet.backlog_weights()
+        weights = {p: demand.get(p, 0.0) + backlog.get(p, 0.0)
+                   for p in fleet.reg.pipelines}
+        budgets = orch.budgets(
+            fleet.fleet_sched._objective_weights(fleet, tau, weights))
+        target = orch.generate(recent, budgets, measured)
+    finally:
+        orch.num_chips = old_total
+    if target is None:
+        return 0
+    stamp = tau if land is None else land
+    staged = 0
+    for pid in fleet.reg.pipelines:
+        sub = target.subplans[pid]
+        lo, _ = target.chip_ranges[pid]
+        k = sub.unit_size
+        for g, ptype in enumerate(sub.placements):
+            need = frozenset(ptype)
+            for c in range(lo + g * k, lo + (g + 1) * k):
+                if c >= old_total:
+                    fleet.prewarmed[c] = (pid, need, stamp)
+                    staged += 1
+    return staged
 
 
 def rank_classes(forecast: DemandForecaster, t: float) -> List[str]:

@@ -164,8 +164,8 @@ class FleetMonitor:
         self._fin_n: Dict[str, int] = collections.defaultdict(int)
         self._fin_on: Dict[str, int] = collections.defaultdict(int)
         self.last_repartition: float = -1e9
-        # unit-lending pressure windows (read by the lending broker, a
-        # later slice of the port): short sliding window of (backlog-pressure, idle active units) samples per
+        # unit-lending pressure windows (core/lending.py): short sliding
+        # window of (backlog-pressure, idle active units) samples per
         # pipeline — borrow/return decisions react on lend_win, not the
         # re-partition window.  Pressure is measured in queued chip-seconds
         # per owned chip (the fleet's unit-time footprint currency), so a

@@ -22,10 +22,11 @@ simulator (``core/simulator.py``), with the profiler's latencies in place of
 stage executions.  ``launch/serve.py`` and ``launch/serve_pipeline.py`` go
 through it; nothing runs it with real stage executions on the clock.
 
-Counterpart of ``repro/core/runtime.py``, with the fleet's hooks (unit
-seeding on a re-partition, predictive pre-warm, cross-lane fused stages):
-the hooks of unit lending (loan units) and of elastic capacity (unit
-slowdowns) wait for those modules.
+Counterpart of ``repro/core/runtime.py``, with the fleet's hooks: unit
+seeding on a re-partition (which also charges a loan's reloads), predictive
+pre-warm, cross-lane fused stages, loan units hosting borrowed E/C work
+(``add_loan_unit``, ``revive_loan_unit``; core/lending.py) and per-unit
+slowdowns of degraded hardware (``set_unit_slowdown``; core/elastic.py).
 """
 from __future__ import annotations
 
@@ -48,6 +49,7 @@ class Unit:
     resident: Set[str]           # stages actually loaded
     free_at: float = 0.0
     hb_staged: float = 0.0       # staged handoff bytes (drained at launch)
+    slow: float = 1.0            # degraded-hardware slowdown (core/elastic.py)
 
 
 @dataclasses.dataclass
@@ -93,6 +95,9 @@ class RuntimeEngine:
         # on every dispatch round
         self._free_map: Dict[int, float] = {u.uid: u.free_at
                                             for u in self.units}
+        # True only while some unit carries a slowdown (core/elastic.py):
+        # otherwise ``execute`` never reads the factors
+        self._degraded = False
 
     # ------------------------------------------------------------------ state
 
@@ -120,7 +125,8 @@ class RuntimeEngine:
         """Pre-busy freshly built units (fleet re-partition, core/fleet.py):
         a unit inherits the in-flight work of the chips it now owns plus the
         weight-reload latency charged when its pipeline or placement type
-        changed hands."""
+        changed hands.  The lending broker charges a loan's reloads on
+        borrow and on return through it too."""
         for uid, t in busy_until.items():
             u = self.units[uid]
             if t > u.free_at:
@@ -134,7 +140,7 @@ class RuntimeEngine:
         weights on a unit that keeps serving its current pipeline until the
         cutover.  The staging DMA occupies the unit like a reload (charged
         through ``seed_unit_state``, the same entry point re-partition
-        swaps pay), but the unit stays in its engine and remains
+        swaps and loans pay), but the unit stays in its engine and remains
         dispatchable afterwards — the load overlaps the tail of the old
         mix instead of charging downtime at the re-partition.  Returns the
         time the unit is busy until."""
@@ -144,6 +150,51 @@ class RuntimeEngine:
         self.stats.prewarm_loads += 1
         self.stats.prewarm_load_time += load_time
         return until
+
+    # -- degraded hardware (core/elastic.py) ---------------------------------
+
+    def set_unit_slowdown(self, uid: int, factor: float) -> None:
+        """Stage runs touching this unit take ``factor`` x their profiled
+        time until it is reset to 1.0."""
+        self.units[uid].slow = factor
+        self._degraded = any(u.slow != 1.0 for u in self.units)
+
+    def _slow_factor(self, unit_ids: Sequence[int]) -> float:
+        f = 1.0
+        for g in unit_ids:
+            s = self.units[g].slow
+            if s > f:
+                f = s
+        return f
+
+    # -- unit lending (core/lending.py) ---------------------------------------
+
+    def add_loan_unit(self, ptype: str, node: int, busy_until: float) -> int:
+        """Append a borrowed foreign unit hosting ``ptype`` (E or C) for this
+        engine's pipeline.  ``node`` is a synthetic id disjoint from the
+        plan's own nodes, so pushes to it are priced as inter-node traffic.
+        The unit is busy until ``busy_until`` (the borrow-time reload)."""
+        uid = self.plan.extend(ptype)
+        self.units.append(Unit(uid=uid, node=node, placement=ptype,
+                               resident=set(ptype), free_at=busy_until))
+        self._free_map[uid] = busy_until
+        self._mark_busy(uid, busy_until)
+        return uid
+
+    def revive_loan_unit(self, uid: int, ptype: str, node: int,
+                         busy_until: float) -> None:
+        """Reuse a returned loan slot for a new loan (unit ids stay stable
+        for the engine's lifetime: nothing is ever removed)."""
+        u = self.units[uid]
+        u.placement = ptype
+        u.resident = set(ptype)
+        u.node = node
+        u.hb_staged = 0.0
+        u.free_at = max(u.free_at, busy_until)
+        self._free_map[uid] = u.free_at
+        self.plan.retype(uid, ptype)
+        self.plan.set_active(uid, True)
+        self._mark_busy(uid, u.free_at)
 
     # ----------------------------------------------------------- placement plan
 
@@ -288,6 +339,8 @@ class RuntimeEngine:
         bs = dec.batch   # App. E.1 dynamic batching
         xl_e = getattr(dec, "xl_efused", None)
         t_d = prof.batched_stage_time(req, "D", k_chips, bs)
+        if self._degraded:
+            t_d *= self._slow_factor(dec.d_units)
 
         out: Dict[str, Tuple[float, float]] = {}
         units = self.units
@@ -309,6 +362,8 @@ class RuntimeEngine:
         else:
             t_e = prof.batched_stage_time(
                 req, "E", max(1, len(dec.e_units)) * prof.k_min, bs)
+            if self._degraded and dec.e_units:
+                t_e *= self._slow_factor(dec.e_units)
             merged_ed = tuple(dec.e_units) == tuple(dec.d_units)
 
             # --- E -----------------------------------------------------------
@@ -359,6 +414,8 @@ class RuntimeEngine:
         # --- C ---------------------------------------------------------------
         t_c = prof.batched_stage_time(req, "C",
                                       max(1, len(dec.c_units)) * prof.k_min, bs)
+        if self._degraded and dec.c_units:
+            t_c *= self._slow_factor(dec.c_units)
         if set(dec.c_units) <= set(dec.d_units):
             # merging execute: D+C on D's units (one dispatch overhead)
             c_start = d_fin

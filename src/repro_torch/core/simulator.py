@@ -161,7 +161,7 @@ class Simulator(Lane):
             self.admit(trace[ai], clock)
             ai += 1
         self._ai = ai
-        for t, _, _, s, ptype, dur, _ in self.clock.pop_due(tau):
+        for t, _, _, s, ptype, dur, _, _ in self.clock.pop_due(tau):
             self.on_completion(t, s, ptype, dur)
         self.step(tau, self.clock, self._apply_replacement)
 

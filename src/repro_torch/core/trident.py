@@ -126,8 +126,14 @@ class TridentScheduler(Scheduler):
                     chunk = pool[i:i + bs0]
                     pending.append(chunk[0])
                     chunk_of[chunk[0].rid] = chunk
+        # a fleet Lane carries its borrowed foreign E/C units (unit lending)
+        # and its draining units (elastic capacity); the plain Simulator
+        # has neither
         out = self.disp.dispatch(pending, sim.engine.plan, idle,
-                                 sim.engine.free_at(), tau)
+                                 sim.engine.free_at(), tau,
+                                 borrowed=getattr(sim, "borrowed_units", None),
+                                 draining=getattr(sim, "draining_units",
+                                                  None) or None)
         if self.enable_batching:
             for dec in out:
                 chunk = chunk_of.get(dec.request.rid, [dec.request])

@@ -1,9 +1,12 @@
 """Workload traces (paper section 8.1, Table 5): Steady, Dynamic, Proprietary.
 
-Counterpart of ``repro/core/workloads.py``: the single-pipeline traces, and
-the fleet's heterogeneous traces (the shared-cluster mix flip, the diurnal
-predictive scenario, the cross-lane batching burst storm).  The lending,
-scale and elastic traces wait for their modules.  Mix weights and request rates follow Table 5; Poisson arrivals.
+Counterpart of ``repro/core/workloads.py``: the single-pipeline traces, the
+fleet's heterogeneous traces (the shared-cluster mix flip, the bursty-E/C
+lending scenario, the diurnal predictive scenario, the cross-lane batching
+burst storm) and the elastic scenario's capacity schedules (preemption
+storms, a region evacuation).  The scale tier's trace waits for the
+array-backed slice.  Mix weights and request rates follow Table 5; Poisson
+arrivals.
 The Proprietary trace has the diurnal/tidal shape of Fig. 9, scaled to the
 Steady request budget (Appendix D.1). Each request's deadline is
 ``SLO_SCALE`` times its pipeline time under the given ``Profiler``, so with
@@ -159,6 +162,51 @@ MIX_FLIP: Tuple[Tuple[float, Dict[str, float]], ...] = (
     (1.0, {"sd3": 0.5, "flux": 2.0, "cogvideox": 1.25}),
 )
 
+# Bursty-E/C unit-lending scenario (``launch/serve_fleet.py --scenario
+# lending``): a calm sizing phase spanning the first fleet
+# demand window fixes the partition, then three anti-correlated sub-window
+# decode bursts — cogvideox (vae-decode dominated aux work) spikes 3.5x
+# exactly while sd3 sits in its lull.  The bursts are shorter than the
+# adaptive scheduler's hysteresis window + cooldown, so re-partitioning
+# cannot chase them: without lending the capacity is stranded on sd3's
+# range, with lending the decode overflow rides on borrowed sd3 units.
+LENDING_RATES: Dict[str, float] = {"sd3": 40.0, "cogvideox": 1.0}
+BURST_MULTS: Dict[str, float] = {"cogvideox": 3.5, "sd3": 0.3}
+
+
+def bursty_ec_phases(duration: float, head: float = 180.0,
+                     burst: float = 60.0, calm: float = 60.0
+                     ) -> Tuple[Tuple[float, Dict[str, float]], ...]:
+    """Phase spans for the bursty-E/C scenario at any duration: the burst
+    *lengths* are what the scenario is tuned around (sub-window, so the
+    re-partitioner cannot chase them), so they stay absolute — a longer
+    trace gets more bursts, not longer ones.  Durations too short for even
+    one absolute burst cycle fall back to the tuned 600 s *shape* (spans
+    scale down proportionally), so short smoke traces still burst."""
+    if duration < head + burst + calm:
+        scale = duration / 600.0
+        head, burst, calm = head * scale, burst * scale, calm * scale
+    spans: List[Tuple[float, Dict[str, float]]] = [(head / duration, {})]
+    t = head
+    while t + burst + calm <= duration:
+        t += burst
+        spans.append((t / duration, dict(BURST_MULTS)))
+        # an intermediate calm span only when another burst still fits;
+        # otherwise the trailing calm runs to the end as one span (span
+        # boundaries restart the arrival streams, so structure matters)
+        if t + calm + burst + calm <= duration:
+            t += calm
+            spans.append((t / duration, {}))
+        else:
+            break
+    if spans[-1][0] < 1.0:
+        spans.append((1.0, {}))
+    return tuple(spans)
+
+
+BURSTY_EC: Tuple[Tuple[float, Dict[str, float]], ...] = bursty_ec_phases(600.0)
+
+
 # Cross-lane dynamic batching scenario (``launch/serve_fleet.py --scenario
 # cross_batch``): a long-prompt burst storm over a flux +
 # hunyuanvideo fleet.  A steady cheap-prompt base stream (cond_len 77,
@@ -248,6 +296,103 @@ def cross_batch_trace(duration: float, profs: Dict[str, Profiler],
     out = base + wave
     out.sort(key=lambda r: (r.arrival, r.pipeline, r.rid))
     return out
+
+
+# Elastic, failure-prone fleet scenario (``launch/serve_fleet.py --scenario
+# elastic``, core/elastic.py): a steady two-pipeline fleet on a pool that
+# refuses to stay fixed.  The schedules below are *capacity* scripts —
+# tuples of ``CapacityEvent`` for ``FleetConfig.elastic_schedule`` — not
+# traces; pair them with a plain ``fleet_trace`` at ELASTIC_RATES.  Both
+# generators track the live node count through their own event sequence,
+# so every victim node id is valid in the compacted chip space at apply
+# time (the ``CapacityEvent`` contract); degraded nodes are drawn from
+# the low end of the pool and victims from the high end, so a loss never
+# shifts a still-degraded node's id.  The workload pairs a short-stage
+# image pipeline with the *heavy* hunyuanvideo mix (denoise runs of
+# 25-75 s, the same order as the notice window): draining matters
+# exactly when a stage started inside the lead cannot finish before the
+# loss, so the drain-unaware arm both wastes the doomed units' entire
+# lead window of execution *and* restarts the victims a full lead later.
+# Rates are tuned for a 256-chip starting pool running hot enough that
+# losing a storm's worth of nodes visibly backs the queues up — the
+# regime where that wasted work decides the recovery tail.
+ELASTIC_PIPELINES: Tuple[str, ...] = ("sd3", "hunyuanvideo")
+ELASTIC_RATES: Dict[str, float] = {"sd3": 8.0, "hunyuanvideo": 1.6}
+ELASTIC_LEVEL = "heavy"            # long-video mix: D-stage ~ lead
+ELASTIC_LEAD = 60.0                # spot eviction notice window (s)
+ELASTIC_DEGRADE_FACTOR = 2.5       # slow-failing node stage-time multiplier
+
+
+def preemption_storm_schedule(duration: float, num_chips: int,
+                              chips_per_node: int = 8, seed: int = 0,
+                              n_storms: int = 2, lead: float = ELASTIC_LEAD,
+                              storm_div: int = 6) -> Tuple:
+    """Repeated spot-preemption storms with autoscale recovery: each storm
+    announces (``lead`` ahead) and then takes a random slice of the upper
+    half of the live pool (``live // storm_div`` nodes — smaller divisor,
+    bigger storm); a same-size join lands a tenth of the trace later with
+    half the announce window.  One low node runs degraded
+    (``ELASTIC_DEGRADE_FACTOR``) through the first half.  Deterministic
+    per seed."""
+    from repro_torch.core.elastic import CapacityEvent
+    rng = random.Random(f"elastic-storm:{seed}")
+    live = num_chips // chips_per_node
+    floor = max(2, live // 2)
+    events = []
+    bad = rng.randrange(0, max(1, live // 4))
+    # the slow node recovers *before* the first storm notice (0.30D - lead):
+    # the degrade exercises Monitor detection + quarantine, but a node
+    # running at 1/ELASTIC_DEGRADE_FACTOR speed inside the measured
+    # recovery windows would confound the drain-vs-requeue comparison the
+    # storm exists to make (and, near the knee, tip both arms into
+    # collapse regardless of drain policy).
+    events.append(CapacityEvent(t=round(duration * 0.05, 3), kind="degrade",
+                                nodes=(bad,),
+                                factor=ELASTIC_DEGRADE_FACTOR))
+    events.append(CapacityEvent(t=round(duration * 0.22, 3), kind="recover",
+                                nodes=(bad,)))
+    for i in range(n_storms):
+        frac = (0.30 + 0.40 * i / (n_storms - 1)) if n_storms > 1 else 0.45
+        t = round(duration * frac, 3)
+        k = max(1, min(live // storm_div, live - floor))
+        if live - k < floor or t - lead <= 0.0:
+            break
+        victims = tuple(sorted(rng.sample(range(live // 2, live), k)))
+        events.append(CapacityEvent(t=t, kind="preempt", nodes=victims,
+                                    lead=lead))
+        live -= k
+        tj = round(t + duration * 0.10, 3)
+        if tj < duration * 0.95:
+            events.append(CapacityEvent(t=tj, kind="join", n_nodes=k,
+                                        lead=lead / 2.0))
+            live += k
+    return tuple(sorted(events, key=lambda e: (e.t, e.kind)))
+
+
+def region_evacuation_schedule(duration: float, num_chips: int,
+                               chips_per_node: int = 8, seed: int = 0,
+                               lead: float = ELASTIC_LEAD) -> Tuple:
+    """One announced region evacuation: a quarter of the pool joins first
+    (the replacement region, announced ``lead`` ahead so its chips
+    pre-warm), then the *old* top quarter is evacuated under a long
+    (1.5x) notice window — the migrate-ahead-of-decommission shape.  A
+    low node runs degraded early in the trace.  Deterministic per seed."""
+    from repro_torch.core.elastic import CapacityEvent
+    rng = random.Random(f"elastic-evac:{seed}")
+    n0 = num_chips // chips_per_node
+    m = max(1, n0 // 4)
+    bad = rng.randrange(0, max(1, n0 - m))
+    events = [
+        CapacityEvent(t=round(duration * 0.12, 3), kind="degrade",
+                      nodes=(bad,), factor=ELASTIC_DEGRADE_FACTOR),
+        CapacityEvent(t=round(duration * 0.30, 3), kind="recover",
+                      nodes=(bad,)),
+        CapacityEvent(t=round(duration * 0.40, 3), kind="join", n_nodes=m,
+                      lead=lead),
+        CapacityEvent(t=round(duration * 0.55, 3), kind="preempt",
+                      nodes=tuple(range(n0 - m, n0)), lead=1.5 * lead),
+    ]
+    return tuple(sorted(events, key=lambda e: (e.t, e.kind)))
 
 
 # Diurnal predictive scenario (``launch/serve_fleet.py --scenario

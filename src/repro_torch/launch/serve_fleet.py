@@ -1,7 +1,7 @@
 """Fleet entry point: one shared cluster serving several pipelines.
 
 Runs the fleet (``core/fleet.py``) on the host, through the event-clock
-simulator, in one of three scenarios:
+simulator, in one of five scenarios:
 
 * ``shared``      — sd3 + flux + cogvideox on one pool under a mid-trace
   traffic-mix flip (``workloads.FLEET_RATES`` / ``MIX_FLIP``): the static,
@@ -11,7 +11,15 @@ simulator, in one of three scenarios:
   re-partitioning (``BENCH_predictive.json``);
 * ``cross_batch`` — flux + hunyuanvideo under a long-prompt burst storm
   (``workloads.cross_batch_trace``): the predictive fleet with cross-lane
-  batching off and on (``BENCH_cross_batch.json``).
+  batching off and on (``BENCH_cross_batch.json``), beside narrative runs
+  of re-partitioning alone and of unit lending;
+* ``lending``     — sd3 + cogvideox on 256 chips under sub-window decode
+  bursts (``workloads.BURSTY_EC``): the adaptive fleet without and with
+  unit lending (``BENCH_unit_lending.json``);
+* ``elastic``     — sd3 + hunyuanvideo on a pool hit by preemption storms,
+  autoscale joins and a degraded node
+  (``workloads.preemption_storm_schedule``): the adaptive fleet acting on
+  preemption notices (drain-aware) or not (``BENCH_elastic.json``).
 
 Every stage is priced by the profiler on a named ``Hardware`` set:
 ``H100_SXM`` (``--hw h100``, the default), fitted to the stage times
@@ -25,9 +33,8 @@ tensor is computed, so it needs no card.
       [--hw reference] [--duration S] [--json out.json]
 
 Counterpart of the fleet scenarios of ``benchmarks/e2e.py``
-(``run_mixed_shared``, ``run_predictive``, ``run_cross_batch``) and of the
-way it writes their JSON.  The lending arm of the cross-batch narrative
-waits for the unit-lending slice.
+(``run_mixed_shared``, ``run_predictive``, ``run_cross_batch``,
+``run_lending``, ``run_elastic``) and of the way it writes their JSON.
 """
 from __future__ import annotations
 
@@ -39,7 +46,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 from repro_torch.core import workloads
 from repro_torch.core.fleet import (FleetConfig, FleetResult, PipelineRegistry,
-                                    not_ported, run_fleet)
+                                    run_fleet)
 from repro_torch.core.profiler import H100_SXM, REFERENCE_HW, Hardware
 
 HARDWARE = {"h100": H100_SXM, "reference": REFERENCE_HW}
@@ -88,21 +95,50 @@ CROSS_BATCH_SMOKE: Dict = dict(
     wave_rates={"flux": 4.6, "hunyuanvideo": 0.2},
     cfg=dict(num_chips=64, t_win=120.0, cooldown=100.0))
 
+# -- unit lending on the bursty-E/C trace: identical arrivals, the adaptive
+# scheduler both arms, lending off vs on.  Burst lengths are the point, so
+# the trace keeps its 600 s and --full widens across seeds instead
+LENDING_PIPELINES = ("sd3", "cogvideox")
+LENDING_MODES = ("adaptive", "adaptive+lending")
+LENDING_CHIPS = 256
+LENDING_DURATION = 600.0
+
+# -- elastic capacity on the preemption-storm script: identical arrivals and
+# capacity events both arms; drain-aware acts on every notice (drain, loan
+# force-return, join pre-warm), drain-unaware eats the loss's requeues
+ELASTIC_PIPELINES = workloads.ELASTIC_PIPELINES
+ELASTIC_ARMS = ("drain_aware", "drain_unaware")
+ELASTIC_DURATION = 900.0
+ELASTIC_CFG: Dict = dict(num_chips=256, t_win=120.0, cooldown=100.0)
+# recovery window: requests arriving between a preemption's notice and this
+# long after its landing
+ELASTIC_RECOVERY_TAIL = 120.0
+# CI-sized variant: one storm on 128 chips at half rate
+ELASTIC_SMOKE: Dict = dict(
+    duration=480.0, n_storms=1,
+    rates={"sd3": 4.0, "hunyuanvideo": 0.8},
+    cfg=dict(num_chips=128, t_win=90.0, cooldown=70.0))
+
 SCENARIO_PIPELINES = {"shared": SHARED_PIPELINES,
                       "predictive": PREDICTIVE_PIPELINES,
-                      "cross_batch": CROSS_BATCH_PIPELINES}
+                      "cross_batch": CROSS_BATCH_PIPELINES,
+                      "lending": LENDING_PIPELINES,
+                      "elastic": ELASTIC_PIPELINES}
 SCENARIOS = tuple(SCENARIO_PIPELINES)
 
 
 @dataclasses.dataclass
 class Run:
     """One fleet run of a scenario: ``mode`` is the fleet scheduler (or the
-    cross-batch arm), ``wall_s`` the host seconds of the simulation alone."""
+    scenario's arm), ``wall_s`` the host seconds of the simulation alone.
+    ``recovery`` is the elastic scenario's (P95 latency, requests) over its
+    recovery windows, else None."""
     scenario: str
     mode: str
     seed: int
     result: FleetResult
     wall_s: float
+    recovery: Optional[Tuple[float, int]] = None
 
 
 def _scaled(rates: Dict[str, float], scale: float) -> Dict[str, float]:
@@ -301,11 +337,8 @@ def run_cross_batch(hw: Hardware = H100_SXM,
     placement shape into one batched launch on the freer aux unit.
 
     ``narrative_arms`` adds seed-0 reference runs of the alternatives:
-    ``"adaptive"`` (re-partitioning alone).  The reference's ``"lending"``
-    arm waits for the unit-lending slice and raises."""
-    if "lending" in narrative_arms:
-        raise not_ported("the lending arm of the cross-batch narrative",
-                         "unit lending")
+    ``"adaptive"`` (re-partitioning alone) and ``"lending"`` (the
+    predictive fleet with unit lending instead of batching)."""
     cfg_kw = dict(CROSS_BATCH_CFG)
     cfg_kw.update(fleet_cfg_kw or {})
     base_rates = _scaled(base_rates or workloads.CROSS_BATCH_BASE_RATES,
@@ -333,10 +366,17 @@ def run_cross_batch(hw: Hardware = H100_SXM,
     if "adaptive" in narrative_arms:
         ad = one("narrative-adaptive", "adaptive", seeds[0])
         runs.append(ad)
-        narrative = {
+        narrative.update({
             "adaptive_p95_s": round(ad.result.p95_latency, 3),
             "adaptive_repartitions": len(ad.result.repartitions) - 1,
-        }
+        })
+    if "lending" in narrative_arms:
+        ln = one("narrative-lending", "predictive", seeds[0], lending=True)
+        runs.append(ln)
+        narrative.update({
+            "lending_p95_s": round(ln.result.p95_latency, 3),
+            "lending_loans": ln.result.loans,
+        })
     if bench_path and set(CROSS_BATCH_ARMS) <= set(modes):
         by = {(r.seed, r.mode): r.result for r in runs}
         ratio_by_seed = {s: by[(s, "off")].p95_latency
@@ -375,13 +415,229 @@ def run_cross_batch(hw: Hardware = H100_SXM,
     return runs
 
 
+# ---------------------------------------------------------------- lending
+
+def run_lending(hw: Hardware = H100_SXM, duration: float = LENDING_DURATION,
+                rate_scale: float = 1.0, fleet_cfg_kw: Optional[Dict] = None,
+                seeds: Sequence[int] = (0,),
+                modes: Sequence[str] = LENDING_MODES,
+                bench_path: Optional[str] = None) -> List[Run]:
+    """Cross-pipeline unit lending on the bursty-E/C trace.
+
+    A calm sizing window, then sub-window decode bursts of cogvideox while
+    sd3 sits in its lull: too short for the adaptive re-partitioner's
+    hysteresis and cooldown to chase, so without lending the burst pipeline
+    drowns while sd3 units idle.  Borrowed units host E/C only; the
+    headline is the worst-pipeline P95 ratio."""
+    rates = _scaled(workloads.LENDING_RATES, rate_scale)
+    cfg_kw: Dict = dict(num_chips=LENDING_CHIPS)
+    cfg_kw.update(fleet_cfg_kw or {})
+    phases = workloads.bursty_ec_phases(duration)
+    registry = PipelineRegistry(LENDING_PIPELINES, hw=hw)
+    profs = {pid: registry.profiler(pid) for pid in LENDING_PIPELINES}
+    runs = []
+    for seed in seeds:
+        for mode in modes:
+            trace = workloads.fleet_trace(LENDING_PIPELINES, duration, profs,
+                                          seed=seed, rates=rates,
+                                          phases=phases)
+            cfg = FleetConfig(**cfg_kw, lending=mode == "adaptive+lending")
+            runs.append(_timed("lending", mode, seed,
+                               pipelines=LENDING_PIPELINES, mode="adaptive",
+                               duration=duration, cfg=cfg,
+                               registry=registry, trace=trace))
+    if bench_path and set(LENDING_MODES) <= set(modes):
+        by = {(r.seed, r.mode): r.result for r in runs}
+        worst_by_seed = {}
+        for seed in seeds:
+            ad, lend = by[(seed, "adaptive")], by[(seed, "adaptive+lending")]
+            worst_by_seed[seed] = (
+                max(m["p95_s"] for m in ad.per_pipeline.values())  # detlint: ignore[DET004] numeric extremum over values: order-free
+                / max(1e-9, max(m["p95_s"]  # detlint: ignore[DET004] numeric extremum over values: order-free
+                                for m in lend.per_pipeline.values())))
+        results = {mode: by[(seeds[0], mode)] for mode in LENDING_MODES}
+        ad, lend = results["adaptive"], results["adaptive+lending"]
+        worst_x = min(worst_by_seed.values())  # detlint: ignore[DET004] numeric extremum over values: order-free
+        p95_x = ad.p95_latency / max(lend.p95_latency, 1e-9)
+        _write({
+            "bench": "unit_lending_bursty_ec",
+            "num_chips": cfg_kw["num_chips"],
+            "pipelines": list(LENDING_PIPELINES),
+            "duration_s": duration,
+            "rates_rps": rates,
+            "phases": [[f, dict(m)] for f, m in phases],
+            "worst_pipeline_p95_improvement_lending_vs_adaptive":
+                round(worst_x, 3),
+            "worst_pipeline_p95_improvement_per_seed":
+                {s: round(v, 3) for s, v in worst_by_seed.items()},
+            "p95_improvement_lending_vs_adaptive": round(p95_x, 3),
+            "slo_improvement_pts": round((lend.slo_attainment
+                                          - ad.slo_attainment) * 100, 2),
+            "loans": lend.loans,
+            "borrowed_unit_seconds": round(lend.borrowed_unit_seconds, 1),
+            "lend_swap_cost_s": round(lend.lend_swap_cost_s, 2),
+            "borrowed_stage_runs": lend.borrowed_stage_runs,
+            "diffuse_runs_on_borrowed_units":
+                lend.borrowed_stage_runs.get("D", 0),
+            "modes": {
+                mode: {
+                    "p95_s": round(r.p95_latency, 3),
+                    "mean_s": round(r.mean_latency, 3),
+                    "slo_pct": round(r.slo_attainment * 100, 2),
+                    "goodput_rps": round(r.goodput, 3),
+                    "repartitions": len(r.repartitions) - 1,
+                    "per_pipeline": _per_pipeline(r),
+                } for mode, r in results.items()},
+        }, bench_path)
+    return runs
+
+
+def lending_stage_worth(hw: Hardware = H100_SXM, level: str = "medium"
+                        ) -> Dict[str, Dict[str, float]]:
+    """What the lending broker's gate reads for each pipeline of the lending
+    scenario: the per-request time of a hosted stage (E, C) at its optimal
+    degree (``LendingBroker._stage_worth`` over a queue of one request),
+    the largest over the pipeline's classes at ``level``.  The broker
+    borrows for a pipeline only when this reaches
+    ``FleetConfig.lend_min_stage_s``."""
+    from types import SimpleNamespace
+    from repro_torch.core.lending import LendingBroker
+    from repro_torch.core.request import Request
+    registry = PipelineRegistry(LENDING_PIPELINES, hw=hw)
+    broker = LendingBroker(FleetConfig(lending=True), registry)
+    out: Dict[str, Dict[str, float]] = {}
+    for pid in LENDING_PIPELINES:
+        prof = registry.profiler(pid)
+        out[pid] = {stage: max(
+            broker._stage_worth(
+                SimpleNamespace(prof=prof, pending=[Request(pid, res, float(sec))]),
+                stage)
+            for (res, sec), _ in workloads.MIXES[pid][level])
+            for stage in ("E", "C")}
+    return out
+
+
+# ---------------------------------------------------------------- elastic
+
+def recovery_windows(schedule, tail: float = ELASTIC_RECOVERY_TAIL
+                     ) -> List[Tuple[float, float]]:
+    """[notice, land + tail] span of every preemption in the schedule."""
+    return [(ev.t - ev.lead, ev.t + tail)
+            for ev in schedule if ev.kind == "preempt"]
+
+
+def recovery_p95(trace, windows, horizon_lat: float) -> Tuple[float, int]:
+    """P95 latency (censored at the horizon, like ``FleetResult``) over the
+    requests that arrive inside any recovery window, and their count."""
+    lat: List[float] = []
+    for r in trace:
+        if not any(lo <= r.arrival <= hi for lo, hi in windows):
+            continue
+        f = r.stage_done.get("C")
+        lat.append((f - r.arrival) if f is not None
+                   else (horizon_lat - r.arrival))
+    lat.sort()
+    n = len(lat)
+    return (lat[int(0.95 * (n - 1))] if n else 0.0), n
+
+
+def run_elastic(hw: Hardware = H100_SXM, duration: float = ELASTIC_DURATION,
+                rates: Optional[Dict[str, float]] = None,
+                rate_scale: float = 1.0, n_storms: int = 2,
+                fleet_cfg_kw: Optional[Dict] = None,
+                seeds: Sequence[int] = (0,),
+                modes: Sequence[str] = ELASTIC_ARMS,
+                bench_path: Optional[str] = None) -> List[Run]:
+    """Elastic capacity and fault injection on the preemption-storm script.
+
+    Both arms play the same capacity schedule on identical arrivals: a
+    degraded node (detected and quarantined), announced preemption storms,
+    autoscale joins.  The drain-aware arm acts on each notice; the
+    drain-unaware arm ignores it and requeues everything in flight on the
+    lost nodes.  The storm script is fixed (seed 0) and the seeds vary only
+    the arrivals; the headline is the recovery-window P95 ratio
+    unaware / aware on ``seeds[0]``."""
+    rates = _scaled(rates or workloads.ELASTIC_RATES, rate_scale)
+    cfg_kw = dict(ELASTIC_CFG)
+    cfg_kw.update(fleet_cfg_kw or {})
+    chips = cfg_kw["num_chips"]
+    registry = PipelineRegistry(ELASTIC_PIPELINES, hw=hw)
+    profs = {pid: registry.profiler(pid) for pid in ELASTIC_PIPELINES}
+    schedule = workloads.preemption_storm_schedule(duration, chips, seed=0,
+                                                   n_storms=n_storms)
+    windows = recovery_windows(schedule)
+    runs = []
+    for seed in seeds:
+        for arm in modes:
+            act = arm == "drain_aware"
+            cfg = FleetConfig(**cfg_kw, elastic=True,
+                              elastic_schedule=schedule,
+                              elastic_drain=act, elastic_prewarm=act)
+            trace = workloads.fleet_trace(ELASTIC_PIPELINES, duration, profs,
+                                          seed=seed, rates=rates,
+                                          level=workloads.ELASTIC_LEVEL)
+            run = _timed("elastic", arm, seed, pipelines=ELASTIC_PIPELINES,
+                         mode="adaptive", duration=duration, cfg=cfg,
+                         registry=registry, trace=trace)
+            trace_end = trace[-1].arrival if trace else 0.0
+            run.recovery = recovery_p95(trace, windows,
+                                        trace_end + cfg.horizon_slack)
+            runs.append(run)
+    if bench_path and set(ELASTIC_ARMS) <= set(modes):
+        by = {(r.seed, r.mode): r for r in runs}
+        ratio_by_seed = {s: by[(s, "drain_unaware")].recovery[0]
+                         / max(by[(s, "drain_aware")].recovery[0], 1e-9)
+                         for s in seeds}
+        first = {arm: by[(seeds[0], arm)] for arm in ELASTIC_ARMS}
+        aware = first["drain_aware"].result
+        unaware = first["drain_unaware"].result
+        sweep_floor = min(ratio_by_seed.values())  # detlint: ignore[DET004] numeric extremum over values: order-free
+        _write({
+            "bench": "elastic_preemption_storm",
+            "num_chips": chips,
+            "pipelines": list(ELASTIC_PIPELINES),
+            "duration_s": duration,
+            "rates_rps": dict(rates),
+            "n_storms": n_storms,
+            "recovery_tail_s": ELASTIC_RECOVERY_TAIL,
+            "recovery_p95_improvement_drain_vs_unaware":
+                round(ratio_by_seed[seeds[0]], 3),
+            "recovery_p95_improvement_per_seed":
+                {s: round(v, 3) for s, v in ratio_by_seed.items()},
+            "recovery_p95_sweep_floor": round(sweep_floor, 3),
+            "slo_improvement_pts": round((aware.slo_attainment
+                                          - unaware.slo_attainment) * 100, 2),
+            "modes": {
+                arm: {
+                    "recovery_p95_s": round(run.recovery[0], 3),
+                    "recovery_requests": run.recovery[1],
+                    "p95_s": round(r.p95_latency, 3),
+                    "mean_s": round(r.mean_latency, 3),
+                    "slo_pct": round(r.slo_attainment * 100, 2),
+                    "goodput_rps": round(r.goodput, 3),
+                    "capacity_events": r.capacity_events,
+                    "nodes_joined": r.nodes_joined,
+                    "nodes_lost": r.nodes_lost,
+                    "requeued_requests": r.requeued_requests,
+                    "drained_units": r.drained_units,
+                    "quarantined_units": r.quarantined_units,
+                    "elastic_prewarm_chips": r.elastic_prewarm_chips,
+                    "final_chips": r.final_chips,
+                    "repartitions": len(r.repartitions) - 1,
+                    "per_pipeline": _per_pipeline(r),
+                } for arm, run in first.items() for r in (run.result,)},
+        }, bench_path)
+    return runs
+
+
 # ---------------------------------------------------------------- CLI
 
 def scenario_runs(args) -> List[Run]:
     """The runs ``main``'s arguments ask for: the scenario at its own sizes
-    (``--smoke``: its CI-sized variant; ``--full``: three seeds, and the
-    shared scenario's hour-long trace), overridden by ``--chips``,
-    ``--duration`` and ``--rate-scale``."""
+    (``--smoke``: its CI-sized variant, where it has one — lending's 600 s
+    trace is already its smallest; ``--full``: three seeds, and the shared
+    scenario's hour-long trace), overridden by ``--chips``, ``--duration``
+    and ``--rate-scale``."""
     hw = HARDWARE[args.hw]
     seeds = (0, 1, 2) if args.full else (0,)
     kw: Dict = dict(hw=hw, rate_scale=args.rate_scale, bench_path=args.json)
@@ -402,9 +658,21 @@ def scenario_runs(args) -> List[Run]:
             kw.update(periods=sm["periods"], rates=sm["rates"])
         fn = run_predictive
         kw.update(seeds=seeds)
+    elif args.scenario == "lending":
+        duration, modes = LENDING_DURATION, LENDING_MODES
+        fn = run_lending
+        kw.update(seeds=seeds)
+    elif args.scenario == "elastic":
+        duration, modes = ELASTIC_DURATION, ELASTIC_ARMS
+        if args.smoke:
+            sm = ELASTIC_SMOKE
+            duration, cfg_kw = sm["duration"], dict(sm["cfg"])
+            kw.update(rates=sm["rates"], n_storms=sm["n_storms"])
+        fn = run_elastic
+        kw.update(seeds=seeds)
     else:
         duration, modes = CROSS_BATCH_DURATION, CROSS_BATCH_ARMS
-        kw.update(narrative_arms=("adaptive",))
+        kw.update(narrative_arms=("adaptive", "lending"))
         if args.smoke:
             sm = CROSS_BATCH_SMOKE
             duration, cfg_kw = sm["duration"], dict(sm["cfg"])
@@ -434,8 +702,10 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Run]:
                     help="multiply every arrival rate (keep the load per "
                          "chip with chips / the scenario's own chips)")
     ap.add_argument("--modes", default=None,
-                    help="comma list of fleet schedulers (cross_batch: arms "
-                         "off,batching); default: the scenario's own")
+                    help="comma list of fleet schedulers or arms (cross_batch: "
+                         "off,batching; lending: adaptive,adaptive+lending; "
+                         "elastic: drain_aware,drain_unaware); default: the "
+                         "scenario's own")
     size = ap.add_mutually_exclusive_group()
     size.add_argument("--smoke", action="store_true",
                       help="the scenario's CI-sized variant")
@@ -447,7 +717,9 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Run]:
     runs = scenario_runs(args)
     for r in runs:
         seed = f" s{r.seed}" if r.seed else ""
-        print(f"{r.scenario}/{r.mode}{seed}: {r.result.summary()}  "
+        rec = (f"  recovery p95={r.recovery[0]:.2f}s" if r.recovery is not None
+               else "")
+        print(f"{r.scenario}/{r.mode}{seed}: {r.result.summary()}{rec}  "
               f"({r.wall_s:.2f} s of host time)")
     return runs
 

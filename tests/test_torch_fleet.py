@@ -9,10 +9,13 @@ fleet, cross-lane batching on a cut of the burst storm, and each ported
 run shows the mechanism the cell is there for.  Requests are compared by
 position, never by ``rid``: ids come from a process-wide counter.
 
-Also here: the grouped ILP, the cross-lane batcher's grouping, the options
-of later slices (each must raise), byte equality under two hash seeds, the
-serving CLI's JSON against the reference's writers, and (marked ``slow``)
-the committed BENCH files reproduced by ``serve_fleet --hw reference``.
+Also here: the grouped ILP, the cross-lane batcher's grouping and its
+borrowed-unit ledger, the options of later slices (each must raise), byte
+equality under two hash seeds, the serving CLI's JSON against the
+reference's writers, and (marked ``slow``) the committed BENCH files
+reproduced by ``serve_fleet --hw reference``.  Unit lending and elastic
+capacity have their own files (``test_torch_lending.py``,
+``test_torch_elastic.py``).
 """
 import dataclasses
 import json
@@ -248,13 +251,20 @@ def test_same_shape_same_stage_groups_together():
     assert len(groups[("E", "EC", 2)]) == 2
 
 
-def test_fused_launch_on_a_borrowed_unit_raises():
-    """Only unit lending puts a unit at or above a lane's own plan size; a
-    fused launch reaching one is a fault until lending is ported."""
-    host = SimpleNamespace(base_units=4)
-    CrossLaneBatcher._charge_borrowed(host, (2, 3))
-    with pytest.raises(NotImplementedError, match="lending"):
-        CrossLaneBatcher._charge_borrowed(host, (3, 4))
+def test_fused_launch_on_a_borrowed_unit_charges_the_host_lane():
+    """A fused launch spanning a loan slot (a unit at or above the host
+    lane's own plan size) counts one run of its stage on the host lane's
+    borrow ledger; a launch on own units, or on a lane that tracks no loans,
+    counts nothing."""
+    host = SimpleNamespace(base_units=4, track_borrowed=True, borrowed_stage_runs={})
+    CrossLaneBatcher._charge_borrowed(host, (2, 3), "E")
+    assert host.borrowed_stage_runs == {}
+    CrossLaneBatcher._charge_borrowed(host, (3, 4, 5), "C")
+    CrossLaneBatcher._charge_borrowed(host, (4,), "C")
+    assert host.borrowed_stage_runs == {"C": 2}
+    idle = SimpleNamespace(base_units=4, track_borrowed=False, borrowed_stage_runs={})
+    CrossLaneBatcher._charge_borrowed(idle, (4,), "E")
+    assert idle.borrowed_stage_runs == {}
 
 
 def test_fused_busy_tracks_host_units_until_their_finish():
@@ -333,11 +343,6 @@ def test_cross_node_sp_raises():
         tfleet.PipelineRegistry(("sd3",), cross_node_sp=True)
 
 
-def test_lending_arm_of_the_cross_batch_narrative_raises():
-    with pytest.raises(NotImplementedError, match="lending"):
-        serve_fleet.run_cross_batch(narrative_arms=("adaptive", "lending"))
-
-
 # -- determinism ------------------------------------------------------------------
 
 _FLEET_RUN = r"""
@@ -395,29 +400,22 @@ def test_cross_batch_smoke_json_is_the_references(tmp_path, capsys):
 # -- the committed BENCH files (slow: the scenarios at their own sizes) ----------
 
 BENCH_GATE = {
-    "shared": (["--scenario", "shared"], "BENCH_shared_cluster.json", ()),
-    "predictive": (["--scenario", "predictive", "--full"], "BENCH_predictive.json", ()),
-    # the two narrative keys of the reference's lending arm wait for lending
-    "cross_batch": (["--scenario", "cross_batch"], "BENCH_cross_batch.json",
-                    ("lending_p95_s", "lending_loans")),
+    "shared": (["--scenario", "shared"], "BENCH_shared_cluster.json"),
+    "predictive": (["--scenario", "predictive", "--full"], "BENCH_predictive.json"),
+    "cross_batch": (["--scenario", "cross_batch"], "BENCH_cross_batch.json"),
+    "lending": (["--scenario", "lending"], "BENCH_unit_lending.json"),
+    "elastic": (["--scenario", "elastic", "--full"], "BENCH_elastic.json"),
 }
 
 
 @pytest.mark.slow
 @pytest.mark.parametrize("scenario", sorted(BENCH_GATE))
 def test_serve_fleet_reproduces_the_committed_bench(tmp_path, scenario):
-    argv, baseline, lending_keys = BENCH_GATE[scenario]
+    argv, baseline = BENCH_GATE[scenario]
     out = tmp_path / baseline
     env = dict(os.environ, PYTHONHASHSEED="31337", PYTHONPATH=str(ROOT / "src"))
     subprocess.run([sys.executable, "-m", "repro_torch.launch.serve_fleet", *argv,
                     "--hw", "reference", "--json", str(out)],
                    capture_output=True, text=True, cwd=str(ROOT), env=env,
                    timeout=3600, check=True)
-    committed = (ROOT / baseline).read_bytes()
-    if not lending_keys:
-        assert out.read_bytes() == committed
-        return
-    want = json.loads(committed)
-    for key in lending_keys:
-        want["narrative"].pop(key)
-    assert json.loads(out.read_bytes()) == want
+    assert out.read_bytes() == (ROOT / baseline).read_bytes()

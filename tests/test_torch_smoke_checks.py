@@ -18,6 +18,7 @@ import dataclasses
 import importlib.util
 import math
 import os
+from types import SimpleNamespace
 
 import pytest
 import torch
@@ -449,11 +450,68 @@ def test_fleet_phase_runs_at_a_cut_size_and_prints_a_row_per_mode(tmp_path, monk
     printed = [json.loads(line[len("[10] "):]) for line in capsys.readouterr().out.splitlines()
                if line.startswith("[10] {")]
     assert printed == rows == json.loads((tmp_path / "fleet.json").read_text())
-    assert [(r["scenario"], r["mode"]) for r in rows] == [
-        ("shared", "static"), ("shared", "proportional"), ("shared", "adaptive"),
-        ("shared", "predictive"), ("predictive", "adaptive"), ("predictive", "predictive"),
-        ("cross_batch", "off"), ("cross_batch", "batching")]
+    assert [(r["scenario"], r["mode"], r["hw"]) for r in rows] == [
+        ("shared", "static", "h100"), ("shared", "proportional", "h100"),
+        ("shared", "adaptive", "h100"), ("shared", "predictive", "h100"),
+        ("predictive", "adaptive", "h100"), ("predictive", "predictive", "h100"),
+        ("cross_batch", "off", "h100"), ("cross_batch", "batching", "h100"),
+        ("lending", "adaptive", "h100"), ("lending", "adaptive+lending", "h100"),
+        ("elastic", "drain_aware", "h100"), ("elastic", "drain_unaware", "h100"),
+        ("elastic", "drain_aware", "reference"), ("elastic", "drain_unaware", "reference")]
     # one node of 8 chips per pipeline: the three-pipeline pool is cut to 24
-    assert [r["chips"] for r in rows] == [24] * 4 + [16] * 4
+    assert [r["chips"] for r in rows] == [24] * 4 + [16] * 10
     assert {r["duration_s"] for r in rows} == {120.0}
     assert all(r["slo_pct"] >= 0.0 and r["host_s"] > 0.0 for r in rows)
+    assert all(r["diffuse_runs_on_borrowed_units"] == 0 for r in rows)
+    assert [r["recovery_p95_s"] is not None for r in rows] == [False] * 10 + [True] * 4
+
+
+def _fleet_run(result, scenario="lending", mode="adaptive+lending", recovery=None):
+    return SimpleNamespace(scenario=scenario, mode=mode, result=result, recovery=recovery)
+
+
+def test_fleet_checks_reject_a_diffuse_run_on_a_borrowed_unit(fleet_result):
+    """Phase 10 fails on a Diffuse stage on a borrowed unit, whatever the
+    scenario, and passes E/C runs on borrowed units."""
+    lent = dataclasses.replace(fleet_result, loans=3, borrowed_stage_runs={"C": 5, "E": 1})
+    smoke.check_fleet_run(_fleet_run(lent), "h100")
+    bad = dataclasses.replace(lent, borrowed_stage_runs={"C": 5, "D": 1})
+    with pytest.raises(RuntimeError, match="Diffuse"):
+        smoke.check_fleet_run(_fleet_run(bad), "h100")
+    with pytest.raises(RuntimeError, match="Diffuse"):
+        smoke.check_fleet_run(_fleet_run(bad, "elastic", "drain_aware"), "reference")
+
+
+def test_fleet_checks_reject_a_loss_without_requeues_on_the_reference_constants(
+        fleet_result):
+    """The drain-unaware arm on the reference's constants must requeue work
+    when it loses nodes; the drain-aware arm, a loss-free run and the
+    H100_SXM run (whose lost nodes hold no work) pass without."""
+    lost = dataclasses.replace(fleet_result, nodes_lost=2, requeued_requests=0)
+    with pytest.raises(RuntimeError, match="nothing requeued"):
+        smoke.check_fleet_run(_fleet_run(lost, "elastic", "drain_unaware"), "reference")
+    smoke.check_fleet_run(_fleet_run(lost, "elastic", "drain_aware"), "reference")
+    smoke.check_fleet_run(_fleet_run(lost, "elastic", "drain_unaware"), "h100")
+    smoke.check_fleet_run(_fleet_run(dataclasses.replace(lost, requeued_requests=4),
+                                     "elastic", "drain_unaware"), "reference")
+    smoke.check_fleet_run(_fleet_run(fleet_result, "elastic", "drain_unaware"), "reference")
+
+
+@pytest.mark.parametrize("field,value", [("loans", 7), ("borrowed_stage_runs", {"C": 1}),
+                                         ("requeued_requests", 3),
+                                         ("elastic_prewarm_chips", 8),
+                                         ("recovery_p95_s", (9.5, 12))])
+def test_fleet_rerun_check_rejects_a_changed_lending_or_elastic_field(fleet_result, field,
+                                                                      value):
+    """A second run of a lending or elastic arm must repeat every field the
+    new rows carry, the recovery-window P95 among them."""
+    first = _fleet_run(fleet_result, "elastic", "drain_aware", (2.5, 12))
+    smoke.same_run(first, _fleet_run(dataclasses.replace(fleet_result), "elastic",
+                                     "drain_aware", (2.5, 12)), "cell")
+    if field == "recovery_p95_s":
+        second = _fleet_run(fleet_result, "elastic", "drain_aware", value)
+    else:
+        second = _fleet_run(dataclasses.replace(fleet_result, **{field: value}), "elastic",
+                            "drain_aware", (2.5, 12))
+    with pytest.raises(RuntimeError, match=field):
+        smoke.same_run(first, second, "cell")
