@@ -75,7 +75,21 @@ Phases:
      ``FleetResult`` field (and the elastic recovery-window P95) the same,
      no Diffuse stage may run on a borrowed unit, and on the reference's
      constants the drain-unaware arm must requeue work when nodes are lost,
-     or the phase fails.
+     or the phase fails;
+  11. the fleet's host-path switches (``array_state``, ``incremental_ilp``,
+     ``step_changed_lanes_only``), on the host: (a) phase 10's six scenario
+     cells again with ``serve_fleet --fast``, a second run of one mode of
+     each must give the same ``FleetResult``, each mode must serve as many
+     requests as its phase-10 run and finish as many, and no Diffuse stage
+     may run on a borrowed unit; each ``[11] {json}`` row carries phase 10's
+     ``host_s`` beside its own; (b) the lending (600 s) and predictive
+     (960 s) scenarios uncut, with ``--fast``; (c) the scale tier's smoke
+     size (512 chips, 100,000 requests) through ``launch/scale.py``, on the
+     reference's constants, where the simulated fields must be the ones the
+     CPU gives, and on ``H100_SXM``; (d) trident with cross-node SP on
+     hunyuanvideo's dynamic workload at 128 chips on ``H100_SXM``, with and
+     without ``--cross-node-sp``, printing the VR and SP degree histograms.
+     Rows are written to ``chiprun_out/fast.json``.
 
 Every counted serve run (phases 5, 5b and 8) follows one untimed run at
 each of its shapes, so its stage times hold no first-call cost. K1 is also
@@ -1092,29 +1106,39 @@ def fleet_row(run, hw: str, chips: int, duration: float) -> dict:
             "wakeups": r.sched_wakeups, "host_s": run.wall_s}
 
 
-def fleet_phase(chips=None, duration=None) -> list:
+def fleet_argv(cell, chips=None, duration=None) -> tuple:
+    """(pool size, trace seconds, serve_fleet arguments) of one of phase
+    10's scenario cells, at ``chips`` (default: its own, the load per chip
+    kept) and ``duration`` seconds (default: its own)."""
+    from repro_torch.launch import serve_fleet
+    scenario, hw, argv, own_chips, seconds, _ = cell
+    n = chips or FLEET_CHIPS.get(scenario, own_chips)
+    # a pool holds at least one node of 8 chips per pipeline
+    n = max(n, 8 * len(serve_fleet.SCENARIO_PIPELINES[scenario]))
+    seconds = duration or seconds
+    return n, seconds, ["--scenario", scenario, "--hw", hw] + argv + [
+        "--chips", str(n), "--rate-scale", repr(n / own_chips), "--duration", repr(seconds)]
+
+
+def fleet_phase(chips=None, duration=None) -> tuple:
     """The simulated H100 fleet through ``launch.serve_fleet.main``, each
     scenario at ``chips`` (default: its own, the load per chip kept) and
     ``duration`` seconds (default: its own); a second run of one mode of
     each scenario must give the same ``FleetResult``, and every run must
-    pass ``check_fleet_run``."""
+    pass ``check_fleet_run``.  Returns the rows and the runs by cell."""
     import contextlib
     import io
     from repro_torch.launch import serve_fleet
-    rows = []
+    rows, by_cell = [], {}
     t_all = time.perf_counter()
-    for scenario, hw, argv, own_chips, seconds, rerun in FLEET_SCENARIOS:
-        n = chips or FLEET_CHIPS.get(scenario, own_chips)
-        # a pool holds at least one node of 8 chips per pipeline
-        n = max(n, 8 * len(serve_fleet.SCENARIO_PIPELINES[scenario]))
-        seconds = duration or seconds
-        argv = ["--scenario", scenario, "--hw", hw] + argv + [
-            "--chips", str(n), "--rate-scale", repr(n / own_chips),
-            "--duration", repr(seconds)]
+    for cell in FLEET_SCENARIOS:
+        scenario, hw, _, _, _, rerun = cell
+        n, seconds, argv = fleet_argv(cell, chips, duration)
         text = io.StringIO()
         with contextlib.redirect_stdout(text):
             runs = serve_fleet.main(argv)
             again = serve_fleet.main(argv + ["--modes", rerun])
+        by_cell[scenario, hw] = runs
         for line in text.getvalue().splitlines():
             print(f"[10] {line}", flush=True)
         first = next(r for r in runs if r.mode == rerun)
@@ -1136,6 +1160,104 @@ def fleet_phase(chips=None, duration=None) -> list:
     print(f"[10] fleet phase: {time.perf_counter() - t_all:.1f} s of host time",
           flush=True)
     with open(out_path("fleet.json"), "w") as f:
+        json.dump(rows, f, indent=1)
+    return rows, by_cell
+
+
+# phase 11's cells.  (b): the scenarios phase 10 cuts, at their own sizes.
+# (c): the scale tier's smoke size, whose simulated fields on the reference's
+# constants are the reference's (its ``benchmarks/e2e.py --scale`` gives the
+# same on a CPU).  (d): trident with cross-node SP.
+UNCUT_SCENARIOS = (("lending", [], 256, 600.0), ("predictive", ["--smoke"], 128, 960.0))
+SCALE_REFERENCE = {"n_requests": 100361, "n_finished": 100361, "slo": 0.991630214924124,
+                   "sched_wakeups": 6703, "repartitions": 1}
+CROSS_NODE_ARGV = ["--pipeline", "hunyuanvideo", "--workload", "dynamic", "--duration",
+                   "600", "--chips", "128"]
+
+
+def fast_row(run, hw: str, chips: int, duration: float, base=None) -> dict:
+    """``fleet_row`` with the switches on, the requests served and finished,
+    and the phase-10 run's host seconds where there is one."""
+    row = fleet_row(run, hw, chips, duration)
+    row.update(fast=True, n_requests=run.result.n_requests, n_finished=run.result.n_finished,
+               phase10_host_s=base.wall_s if base is not None else None)
+    return row
+
+
+def fast_phase(phase10: dict, chips=None, duration=None) -> list:
+    """Phase 11 (the module docstring): the host-path switches on phase 10's
+    cells (``phase10``: ``fleet_phase``'s runs by cell, at the same ``chips``
+    and ``duration``), the uncut scenarios, the scale tier and cross-node
+    SP."""
+    import contextlib
+    import io
+    from repro_torch.launch import scale, serve, serve_fleet
+    rows = []
+    t_all = time.perf_counter()
+    for cell in FLEET_SCENARIOS:
+        scenario, hw, _, _, _, rerun = cell
+        n, seconds, argv = fleet_argv(cell, chips, duration)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            runs = serve_fleet.main(argv + ["--fast"])
+            again = serve_fleet.main(argv + ["--fast", "--modes", rerun])
+        wall = time.perf_counter() - t0
+        same_run(next(r for r in runs if r.mode == rerun), again[0],
+                 f"{scenario}/{rerun} on {hw} with --fast")
+        base = {r.mode: r for r in phase10[scenario, hw]}
+        for run in runs + again:
+            check_fleet_run(run, hw)
+            b = base[run.mode].result
+            got = (run.result.n_requests, run.result.n_finished)
+            if got != (b.n_requests, b.n_finished):
+                raise RuntimeError(f"{scenario}/{run.mode} on {hw} with --fast: "
+                                   f"{got[0]} requests, {got[1]} finished; phase 10 "
+                                   f"{b.n_requests}, {b.n_finished}")
+        for run in runs:
+            row = fast_row(run, hw, n, seconds, base[run.mode])
+            print(f"[11] {json.dumps(row)}", flush=True)
+            rows.append(row)
+        print(f"[11] {scenario} on {hw} with --fast: {len(runs)} modes in {wall:.2f} s of "
+              f"host time, {rerun} repeated bit-equal, requests conserved", flush=True)
+    for scenario, argv, n, seconds in UNCUT_SCENARIOS:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            runs = serve_fleet.main(["--scenario", scenario, "--fast",
+                                     "--duration", repr(seconds)] + argv)
+        wall = time.perf_counter() - t0
+        for run in runs:
+            check_fleet_run(run, "h100")
+            if run.result.n_requests != runs[0].result.n_requests:
+                raise RuntimeError(f"uncut {scenario}: the modes served different traces")
+            row = fast_row(run, "h100", n, seconds)
+            row.update(cell="uncut")
+            print(f"[11] {json.dumps(row)}", flush=True)
+            rows.append(row)
+        print(f"[11] uncut {scenario} with --fast: {len(runs)} modes in {wall:.2f} s of "
+              "host time", flush=True)
+    for hw in ("reference", "h100"):
+        with contextlib.redirect_stdout(io.StringIO()):
+            run = scale.main(["--hw", hw])
+        print(f"[11] {json.dumps({'cell': 'scale', **run})}", flush=True)
+        rows.append({"cell": "scale", **run})
+        if hw == "reference":
+            got = {k: run[k] for k in SCALE_REFERENCE}
+            if got != SCALE_REFERENCE:
+                raise RuntimeError(f"scale tier on the reference's constants: {got}, "
+                                   f"expected {SCALE_REFERENCE}")
+    for cross in (True, False):
+        with contextlib.redirect_stdout(io.StringIO()):
+            r = serve.main(CROSS_NODE_ARGV + (["--cross-node-sp"] if cross else []))[0]
+        row = {"cell": "cross_node_sp" if cross else "node_sp", "pipeline": r.pipeline,
+               "chips": 128, "slo_attainment": r.slo_attainment,
+               "mean_latency": r.mean_latency, "p95_latency": r.p95_latency,
+               "n_requests": r.n_requests, "n_finished": r.n_finished,
+               "vr_histogram": r.vr_histogram, "degree_histogram": r.degree_histogram}
+        print(f"[11] {json.dumps(row)}", flush=True)
+        rows.append(row)
+    print(f"[11] fast-path phase: {time.perf_counter() - t_all:.1f} s of host time",
+          flush=True)
+    with open(out_path("fast.json"), "w") as f:
         json.dump(rows, f, indent=1)
     return rows
 
@@ -1209,7 +1331,8 @@ def main() -> int:
     cluster_phase()
     print(f"[9] cluster phase done in {time.perf_counter() - t0:.1f} s", flush=True)
 
-    fleet_phase()
+    _, phase10 = fleet_phase()
+    fast_phase(phase10)
 
     kernels = []
     for name, source, replaces in (

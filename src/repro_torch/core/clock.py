@@ -29,8 +29,8 @@
 Counterpart of ``repro/core/clock.py``.  ``Lane`` carries the hooks of
 unit lending (its borrowed units and their stage-run ledger) and of elastic
 capacity (draining units, unit tracking on completion events, ``requeue``);
-``EventClock.remove_completions`` revokes in-flight work.  The array-backed
-lane state waits for the array-backed slice.
+``EventClock.remove_completions`` revokes in-flight work.  ``array_state``
+backs a lane's ``PendingSet`` and ``Monitor`` with flat columns.
 """
 from __future__ import annotations
 
@@ -38,6 +38,8 @@ import dataclasses
 import heapq
 import math
 from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
+
+import numpy as np
 
 from repro_torch.core.monitor import Monitor
 from repro_torch.core.request import Request
@@ -243,21 +245,101 @@ class PendingSet:
     Backed by an insertion-ordered dict so dispatch bookkeeping is O(1) per
     removal instead of O(n) ``list.remove`` scans; iteration yields requests
     in arrival (admission) order.
+
+    ``array_state=True`` also keeps a flat float64 deadline column aligned
+    with an admission-ordered slot list (tombstoned on removal, compacted
+    when the dead outnumber the live), so the dispatch path's deadline
+    order comes from one stable argsort (``by_deadline``) instead of a key
+    sort over the requests.  Deadlines are fixed at trace build time, so the
+    snapshot taken on ``add`` never goes stale, and a stable argsort over
+    the admission-ordered column gives exactly
+    ``sorted(self, key=lambda r: r.deadline)``: ties keep admission order.
     """
 
-    __slots__ = ("_by_rid",)
+    __slots__ = ("_by_rid", "_arr", "_req", "_dl", "_slot", "_dead")
 
-    def __init__(self):
+    def __init__(self, array_state: bool = False):
         self._by_rid: Dict[int, Request] = {}
+        self._arr = bool(array_state)
+        if self._arr:
+            self._req: List[Optional[Request]] = []
+            self._dl = np.empty(64, dtype=np.float64)
+            self._slot: Dict[int, int] = {}
+            self._dead = 0
 
     def add(self, req: Request) -> None:
+        if self._arr:
+            slot = self._slot.get(req.rid)
+            if slot is not None:      # re-add keeps the dict's original slot
+                self._req[slot] = req
+                self._dl[slot] = req.deadline
+            else:
+                n = len(self._req)
+                if n == self._dl.shape[0]:
+                    if self._dead * 2 > n:
+                        self._compact()
+                        n = len(self._req)
+                    else:
+                        dl = np.empty(max(64, 2 * n), dtype=np.float64)
+                        dl[:n] = self._dl[:n]
+                        self._dl = dl
+                self._req.append(req)
+                self._dl[n] = req.deadline
+                self._slot[req.rid] = n
         self._by_rid[req.rid] = req
+
+    def _compact(self) -> None:
+        reqs = [r for r in self._req if r is not None]
+        self._req = reqs
+        n = len(reqs)
+        dl = np.empty(max(64, 2 * n), dtype=np.float64)
+        for i, r in enumerate(reqs):
+            dl[i] = r.deadline
+        self._dl = dl
+        self._slot = {r.rid: i for i, r in enumerate(reqs)}
+        self._dead = 0
+
+    def _drop_slot(self, rid: int) -> None:
+        slot = self._slot.pop(rid, None)
+        if slot is not None:
+            self._req[slot] = None
+            self._dead += 1
+            if self._dead > len(self._by_rid):
+                self._compact()
+
+    def by_deadline(self, cap: Optional[int] = None) -> List[Request]:
+        """Pending requests in (deadline, admission) order: the dispatch
+        path's sort, one argsort when array-backed."""
+        if not self._arr:
+            out = sorted(self._by_rid.values(), key=lambda r: r.deadline)  # detlint: ignore[DET004] rid-dict is admission-ordered: stable ties are deterministic (and what the array path reproduces)
+            return out if cap is None else out[:cap]
+        n = len(self._req)
+        reqs = self._req
+        if self._dead:
+            idx = np.fromiter((i for i in range(n) if reqs[i] is not None),
+                              dtype=np.int64, count=n - self._dead)
+            order = idx[np.argsort(self._dl[idx], kind="stable")]
+        else:
+            order = np.argsort(self._dl[:n], kind="stable")
+        if cap is not None:
+            # full stable sort then truncate: sorted()[:cap]
+            order = order[:cap]
+        return [reqs[i] for i in order]
 
     def remove(self, req: Request) -> None:
         del self._by_rid[req.rid]
+        if self._arr:
+            self._drop_slot(req.rid)
+
+    def discard(self, req: Request) -> None:
+        if self._by_rid.pop(req.rid, None) is not None and self._arr:
+            self._drop_slot(req.rid)
 
     def has_rid(self, rid: int) -> bool:
         return rid in self._by_rid
+
+    def __contains__(self, req: Request) -> bool:
+        return req.rid in self._by_rid
 
     def __iter__(self) -> Iterator[Request]:
         return iter(self._by_rid.values())
@@ -311,16 +393,18 @@ class Lane:
     a one-lane subclass.
     """
 
-    def __init__(self, pipeline: str, prof, scheduler: Scheduler):
+    def __init__(self, pipeline: str, prof, scheduler: Scheduler,
+                 array_state: bool = False):
         self.pipeline = pipeline
         self.prof = prof
         self.sched = scheduler
-        self.monitor = Monitor()
-        self.pending = PendingSet()
+        self.monitor = Monitor(array_state=array_state)
+        self.pending = PendingSet(array_state=array_state)
         self.new_arrivals: List[Request] = []  # admitted since the last step
         self.engine: Optional[RuntimeEngine] = None
         self.request_oom: List[Request] = []
         self.vr_histogram: Dict[int, int] = {}
+        self.degree_histogram: Dict[int, int] = {}   # requests by D degree (units)
         self.throughput: Dict[int, int] = {}
         self.placement_log: List[Tuple[float, Dict[str, int]]] = []
         self._stats_base = EngineStats()   # stats of retired engines
@@ -392,6 +476,8 @@ class Lane:
                                   if self.track_units else ())
         self.vr_histogram[dec.vr_type] = (self.vr_histogram.get(dec.vr_type, 0)
                                           + len(members))
+        self.degree_histogram[dec.degree] = (
+            self.degree_histogram.get(dec.degree, 0) + len(members))
         if self.track_borrowed:
             # lending's invariant: Diffuse never lands on a borrowed unit.
             # D is counted, not only asserted, so the result's

@@ -22,8 +22,7 @@ whose members span lanes.
 Counterpart of ``repro/core/dispatcher.py``, with the hooks of unit
 lending (borrowed E/C units as discounted auxiliary candidates, the decode
 offload onto them, a fused launch's borrowed run charged to its host lane)
-and of elastic capacity (the stage-aware drain of doomed units).  The
-incremental re-solve waits for the array-backed slice.
+and of elastic capacity (the stage-aware drain of doomed units).
 """
 from __future__ import annotations
 
@@ -81,17 +80,30 @@ class DispatchDecision:
 
 class Dispatcher:
     def __init__(self, profiler: Profiler, max_batch: int = 64,
-                 solver_time_cap: float = 0.05, aggregate: bool = False):
+                 solver_time_cap: float = 0.05, aggregate: bool = False,
+                 incremental: bool = False):
         """``aggregate`` turns on multiplicity-aware ILP aggregation:
         pending requests with identical option lists (same class, same
         reward state) enter the solver once with a count instead of N
         times (see ``ilp.solve_grouped``).  Off by default so the
         single-pipeline dispatch path keeps its behavior; the fleet layer
-        (core/fleet.py) turns it on."""
+        (core/fleet.py) turns it on.
+
+        ``incremental`` persists the dispatch model across wake-ups: when
+        the option matrix and budgets are unchanged since the previous
+        ``dispatch`` call (pure-completion wake-ups, heartbeat re-checks
+        with a frozen pending set), the previous solution is reused without
+        re-solving, and the solver may take its exact shortcuts
+        (``ilp.solve(dp=True)``).  Reuse is exact whenever the previous
+        solve proved optimality (the branch-and-bound replaces an incumbent
+        only on a *strictly* better reward); under a node-capped solve it
+        may pin an improvable incumbent, and the shortcuts may pick another
+        of several equal-reward optima, so it is off by default."""
         self.prof = profiler
         self.max_batch = max_batch
         self.solver_time_cap = solver_time_cap
         self.aggregate = aggregate
+        self.incremental = incremental
         self.last_solve_stats: Dict[str, float] = {}
         # previous solve's surviving (dim, usage) per request id — warm-starts
         # the ILP incumbent under steady load (requests pending across ticks)
@@ -101,6 +113,11 @@ class Dispatcher:
         # in scan order.  Pure memoization of profiler-table functions of the
         # request class, byte-identical to the uncached scan.
         self._feas: Dict[tuple, Tuple[Tuple[float, int, int], ...]] = {}
+        # persisted model of the incremental re-solve
+        self._sig: Optional[tuple] = None
+        self._sig_choices: Optional[Dict[int, ilp.Option]] = None
+        self._sig_stats: Optional[Dict[str, float]] = None
+        self.solve_reuses = 0    # solves skipped via the persisted model
 
     # -- reward / penalty (App. C.2) ----------------------------------------
 
@@ -272,7 +289,8 @@ class Dispatcher:
                 warm[g] = seeds
         gsol = ilp.solve_grouped(gopts, budgets,
                                  [len(mem) for mem in members],
-                                 time_cap=self.solver_time_cap, warm=warm)
+                                 time_cap=self.solver_time_cap, warm=warm,
+                                 dp=self.incremental)
         choices: Dict[int, ilp.Option] = {}
         for g, granted in gsol.alloc.items():
             for ri, opt in zip(members[g], granted):
@@ -285,9 +303,12 @@ class Dispatcher:
 
     @staticmethod
     def select_units(plan: PlacementPlan, ptype: str, k: int,
-                     idle_units: set) -> Optional[Tuple[int, ...]]:
+                     idle_units: set, cross_node: bool = False
+                     ) -> Optional[Tuple[int, ...]]:
         """k idle units of placement ``ptype`` within one node (intra-machine
-        constraint §6.2); contiguous-first for link locality.  The baselines
+        constraint §6.2); contiguous-first for link locality.  With
+        ``cross_node`` (cross-node SP) the nodes' idle units combine, in
+        ascending node order, when no single node suffices.  The baselines
         and trident's ablations select units through this."""
         upn = plan.units_per_node
         by_node: Dict[int, List[int]] = {}
@@ -301,6 +322,12 @@ class Dispatcher:
                                   key=lambda kv: (-len(kv[1]), kv[0])):
             if len(units) >= k:
                 return tuple(sorted(units)[:k])
+        if cross_node:
+            pool: List[int] = []
+            for node in sorted(by_node):
+                pool.extend(sorted(by_node[node]))
+            if len(pool) >= k:
+                return tuple(pool[:k])
         return None
 
     def _aux_units(self, plan: PlacementPlan, stage: str, k: int,
@@ -403,16 +430,31 @@ class Dispatcher:
                     aux_penalty[s] = BORROW_PENALTY
         options, budgets = self.build_options(reqs, tau, idle_by_type,
                                               aux_penalty)
-        if self.aggregate:
+        # incremental re-solve: the solver sees only (options, budgets) —
+        # request identities, tau and unit ids are outside the model — so an
+        # unchanged signature means the previous solution solves this
+        # instance too (and is its optimum when that solve proved it)
+        sig = ((tuple(budgets), tuple(tuple(o) for o in options))
+               if self.incremental else None)
+        if (sig is not None and sig == self._sig
+                and self._sig_choices is not None):
+            choices = self._sig_choices
+            stats = {**self._sig_stats, "nodes": 0, "reused": True}
+            self.solve_reuses += 1
+        elif self.aggregate:
             choices, stats = self._solve_grouped(reqs, options, budgets)
         else:
             warm = {ri: self._warm[req.rid] for ri, req in enumerate(reqs)
                     if req.rid in self._warm}
             sol = ilp.solve(options, budgets, time_cap=self.solver_time_cap,
-                            warm=warm)
+                            warm=warm, dp=self.incremental)
             choices = sol.choices
             stats = {"nodes": sol.nodes, "optimal": sol.optimal,
                      "reward": sol.reward, "n_solved": len(reqs)}
+        if sig is not None and not stats.get("reused"):
+            self._sig = sig
+            self._sig_choices = choices
+            self._sig_stats = dict(stats)
         self._warm = {reqs[ri].rid: (opt.dim, opt.usage)
                       for ri, opt in choices.items()}
         self.last_solve_stats = {**stats, "n_reqs": len(reqs)}
@@ -425,7 +467,8 @@ class Dispatcher:
         # then-current ``avail``) and maintained across grants instead of
         # walking every unit of the type on each grant.  Selection is
         # ``select_units``': the node with the most idle units of the type,
-        # the lowest node id on ties, and its lowest unit ids.
+        # the lowest node id on ties, and its lowest unit ids; with
+        # cross-node SP, ascending nodes' units pooled when no node suffices.
         upn = plan.units_per_node
         pools: Dict[str, Dict[int, List[int]]] = {}
         # lazy max-heap per type over (-count, node): the top valid entry is
@@ -455,13 +498,22 @@ class Dispatcher:
                     best, best_n = node, -neg
                     break
                 heapq.heappop(heap)   # stale count
-            if best_n < k:
-                return None
-            units = by_node[best]
-            out = tuple(units[:k])
-            del units[:k]
-            heapq.heapreplace(heap, (k - best_n, best))
-            return out
+            if best_n >= k:
+                units = by_node[best]
+                out = tuple(units[:k])
+                del units[:k]
+                heapq.heapreplace(heap, (k - best_n, best))
+                return out
+            if self.prof.cross_node_sp:
+                pool = [g for node in sorted(by_node) for g in by_node[node]]
+                if len(pool) >= k:
+                    out = tuple(pool[:k])
+                    taken = set(out)
+                    for node, units in by_node.items():
+                        units[:] = [g for g in units if g not in taken]
+                        heapq.heappush(heap, (-len(units), node))
+                    return out
+            return None
 
         def _give_back(ptype: str, units: Tuple[int, ...]) -> None:
             by_node = _pool(ptype)
@@ -482,7 +534,8 @@ class Dispatcher:
                 rt = self._req_runtime(req, opt.dim, opt.usage)
                 elig = {g for g in avail
                         if g not in draining or tau + rt <= draining[g]}
-                units = self.select_units(plan, prim, opt.usage, elig)
+                units = self.select_units(plan, prim, opt.usage, elig,
+                                          self.prof.cross_node_sp)
             else:
                 units = _take(prim, opt.usage)
             if units is None:
@@ -606,15 +659,26 @@ class CrossLaneBatcher:
     are deferred via ``dec.xl_cdefer`` and scheduled in :meth:`finalize`
     once every lane's engine has executed and stamped ``stage_done["D"]``.
 
-    Only constructed when the fleet knob is on.  The reference's warm
-    grants across ticks (``incremental_ilp``) are not ported.
+    Only constructed when the fleet knob is on.  With ``incremental``
+    (``FleetConfig.incremental_ilp``) each select of a shape group is
+    warm-started from the group's previous grants and may take the solver's
+    exact shortcuts (``ilp.solve(dp=True)``).
     """
 
-    def __init__(self, max_batch: int = 0, solver_time_cap: float = 0.05):
+    def __init__(self, max_batch: int = 0, solver_time_cap: float = 0.05,
+                 incremental: bool = False):
         self.max_batch = max_batch          # 0 = profiler batch-curve cap
         self.solver_time_cap = solver_time_cap
+        self.incremental = incremental
         self.merges = 0                     # fused launches charged
         self.merged_requests = 0            # batch items across all fusions
+        self.warm_solves = 0                # selects seeded from prior grants
+        # previous grants per shape key: (stage, ptype, unit_size) ->
+        # {gkey: [(dim, usage), ...]}, the warm incumbents of the next select
+        # of the same shape group.  Warm seeding changes which of several
+        # equal-reward member sets the search lands on, so it is gated on
+        # ``incremental`` like the dispatcher's reuse.
+        self._warm_grants: Dict[tuple, Dict[tuple, list]] = {}
         # host units of un-drained fused launches: (host pid, unit) ->
         # latest fused finish.  The lending broker asks ``fused_busy``
         # before it force-returns a borrowed host unit; entries are pruned
@@ -653,9 +717,11 @@ class CrossLaneBatcher:
 
     # -- member selection (grouped ILP, cross-lane columns) -------------------
 
-    def _select(self, stage: str, per_lane: Dict[str, list]):
+    def _select(self, stage: str, per_lane: Dict[str, list], skey: tuple = ()):
         """Pick the fused member set for one shape group.
 
+        ``skey`` is the shape key the group was collected under: the
+        identity the warm store is keyed by across ticks.
         Returns ``(fused, host_lane, host_units, n_total, T)`` or ``None``
         when no fusion spanning >= 2 lanes fits under the caps."""
         # host = lane whose leading candidate's aux units free up earliest
@@ -715,8 +781,23 @@ class CrossLaneBatcher:
                 gmembers[g].append((lane, dec))
         if not gopts:
             return None
+        # cross-tick warm incumbents (incremental): re-seed each surviving
+        # group's grants from the previous select of this shape group, so
+        # the search starts at last tick's member set under a steady burst
+        warm = None
+        if self.incremental:
+            prev = self._warm_grants.get(skey, {})
+            warm = {g: prev[gk] for gk, g in gindex.items()
+                    if gk in prev} or None
+            if warm:
+                self.warm_solves += 1
         sol = ilp.solve_grouped(gopts, budgets, counts,
-                                time_cap=self.solver_time_cap)
+                                time_cap=self.solver_time_cap, warm=warm,
+                                dp=self.incremental)
+        if self.incremental:
+            self._warm_grants[skey] = {
+                gk: [(o.dim, o.usage) for o in sol.alloc[g]]
+                for gk, g in gindex.items() if g in sol.alloc}
         fused = [(host, anchor)]
         for g in sorted(sol.alloc):
             grants = sol.alloc[g]
@@ -804,7 +885,7 @@ class CrossLaneBatcher:
                 per_lane.setdefault(lane.pipeline, []).append((lane, dec))
             if len(per_lane) < 2:
                 continue
-            picked = self._select(stage, per_lane)
+            picked = self._select(stage, per_lane, skey=key)
             if picked is None:
                 continue
             fused, host, host_units, n_total, T = picked

@@ -333,6 +333,7 @@ class FaultInjector:
             fleet._evict_prewarm_unit(pid, g)
             if fleet.broker is not None:
                 fleet.broker.force_return_unit(fleet, pid, g, tau)
+            fleet.mark_lane_dirty(pid)
 
     # -- requeue ---------------------------------------------------------------
 
@@ -381,6 +382,7 @@ class FaultInjector:
             r.stage_done.clear()
             fleet.lanes[pid].requeue(
                 r, fleet.clock if fleet._track_flips else None)
+            fleet.mark_lane_dirty(pid)
         return len(victims)
 
     # -- degrade / recover -----------------------------------------------------
@@ -405,6 +407,7 @@ class FaultInjector:
         for pid, g in sorted(healed):
             fleet.lanes[pid].engine.plan.commission(g)
             self.quarantined.discard((pid, g))
+            fleet.mark_lane_dirty(pid)
 
     def _apply_degrade(self, fleet: "FleetSimulator") -> None:
         """Sync every engine's per-unit slowdown to the current degraded
@@ -424,6 +427,7 @@ class FaultInjector:
                         f = nf
                 if lane.engine.units[g].slow != f:
                     lane.engine.set_unit_slowdown(g, f)
+                    fleet.mark_lane_dirty(pid)
 
     # -- detection feed (fleet._drain) -----------------------------------------
 
@@ -452,6 +456,7 @@ class FaultInjector:
         plan.decommission(g)
         self.quarantined.add(up)
         self.quarantined_units += 1
+        fleet.mark_lane_dirty(pid)
 
     @staticmethod
     def _covers_without(plan, g: int, base_units: int) -> bool:

@@ -59,10 +59,16 @@ fleet drains, requeues and re-partitions onto the pool that survives.
 The single-pipeline system is the 1-pipeline special case: a fleet with one
 registered pipeline reproduces ``Simulator`` + ``TridentScheduler``.
 
-Counterpart of ``repro/core/fleet.py``.  The array-backed fast path
-(``array_state``, ``incremental_ilp``, ``step_changed_lanes_only``) and
-cross-node SP are later slices of the port: setting any of them raises
-``NotImplementedError``.
+Three switches make the fleet's host path faster, each off by default:
+``array_state`` (flat-column lane state; the same trajectory bit for bit),
+``incremental_ilp`` (a persisted dispatch model and the solver's exact
+shortcuts; the same headline metrics up to the order of equal-reward ties)
+and ``step_changed_lanes_only`` (a wake-up steps only the lanes with work
+or an event, a re-partition rebuilds only the lanes that moved; another
+trajectory, with the same requests served).  ``PipelineRegistry(
+cross_node_sp=True)`` lets SP groups span nodes.
+
+Counterpart of ``repro/core/fleet.py``.
 """
 from __future__ import annotations
 
@@ -87,18 +93,6 @@ from repro_torch.core.runtime import RuntimeEngine
 from repro_torch.core.simulator import SimConfig
 from repro_torch.core.trident import TridentScheduler
 
-# the FleetConfig switches of later slices, and the slice each waits for
-CUT_OPTIONS = {
-    "array_state": "the array-backed fast path",
-    "incremental_ilp": "the array-backed fast path",
-    "step_changed_lanes_only": "the array-backed fast path",
-}
-
-
-def not_ported(option: str, slice_name: str) -> NotImplementedError:
-    return NotImplementedError(f"{option} comes with the {slice_name} slice of "
-                               "the port; it is not ported yet")
-
 
 def request_footprint(prof: Profiler, req: Request) -> float:
     """Unit-time footprint of one request: Diffuse chip-seconds at the
@@ -115,8 +109,7 @@ class PipelineRegistry:
 
     def __init__(self, pipeline_ids: Sequence[str] = (),
                  cross_node_sp: bool = False, hw: Hardware = H100_SXM):
-        if cross_node_sp:
-            raise not_ported("cross_node_sp", "cross-node SP")
+        self.cross_node_sp = cross_node_sp
         self.hw = hw
         self._profs: Dict[str, Profiler] = {}
         for pid in pipeline_ids:
@@ -125,7 +118,8 @@ class PipelineRegistry:
     def register(self, pipeline_id: str,
                  profiler: Optional[Profiler] = None) -> Profiler:
         if profiler is None:
-            profiler = Profiler(configs.get(pipeline_id), hw=self.hw)
+            profiler = Profiler(configs.get(pipeline_id), hw=self.hw,
+                                cross_node_sp=self.cross_node_sp)
         self._profs[pipeline_id] = profiler
         return profiler
 
@@ -413,11 +407,30 @@ class FleetConfig:
                                       # replaces BOTH the fused launch's
                                       # shared batch budget and the
                                       # per-lane curve caps
-    # -- the array-backed fast path, a later slice of the port: each raises
-    # when set (CUT_OPTIONS) -------------------------------------------------
-    array_state: bool = False         # array-backed lane state
-    incremental_ilp: bool = False     # persisted dispatch model across ticks
-    step_changed_lanes_only: bool = False  # O(changed-lanes) fleet stepping
+    # -- the host path's fast paths (launch/scale.py), default OFF ----------
+    array_state: bool = False         # array-backed lane state (PendingSet
+                                      # deadline column + Monitor window
+                                      # columns); the same trajectory bit
+                                      # for bit
+    incremental_ilp: bool = False     # persist each lane's dispatch model
+                                      # across wake-ups: skip the ILP solve
+                                      # when (options, budgets) are unchanged,
+                                      # take the solver's exact shortcuts,
+                                      # and warm-start the cross-lane
+                                      # batcher's grouped solves across ticks
+    step_changed_lanes_only: bool = False  # O(changed-lanes) fleet stepping:
+                                      # a wake-up steps only lanes with
+                                      # pending work or a dirty event
+                                      # (arrival / completion / window
+                                      # boundary / re-partition / capacity
+                                      # or lending event), and a
+                                      # re-partition rebuilds only lanes
+                                      # whose chip range or sub-plan moved.
+                                      # Trajectory-changing (idle lanes skip
+                                      # backlog samples); ignored under
+                                      # lending and cross-lane batching
+                                      # (both need every lane visited every
+                                      # step)
     # -- elastic, failure-prone capacity (core/elastic.py), default OFF: the
     # FaultInjector is never constructed ------------------------------------
     elastic: bool = False             # play elastic_schedule through a
@@ -437,11 +450,6 @@ class FleetConfig:
                                       # exceeds this x its pool mean
     degrade_min_samples: int = 6      # per-unit samples before quarantine
 
-    def __post_init__(self):
-        for option, slice_name in CUT_OPTIONS.items():
-            if getattr(self, option):
-                raise not_ported(f"FleetConfig.{option}", slice_name)
-
     def lane_sim_cfg(self, num_chips: int) -> SimConfig:
         return SimConfig(num_chips=num_chips, tick=self.tick,
                          horizon_slack=self.horizon_slack,
@@ -449,7 +457,8 @@ class FleetConfig:
                          adjust_on_dispatch=self.adjust_on_dispatch,
                          mode="event", max_idle_gap=self.max_idle_gap,
                          adaptive_idle_gap=self.adaptive_idle_gap,
-                         idle_gap_max=self.idle_gap_max)
+                         idle_gap_max=self.idle_gap_max,
+                         array_state=self.array_state)
 
     def clock_cfg(self, horizon: float) -> ClockConfig:
         return ClockConfig(tick=self.tick, horizon=horizon, mode=self.mode,
@@ -458,16 +467,25 @@ class FleetConfig:
                            idle_gap_max=self.idle_gap_max)
 
 
+# the three host-path switches, all on (``launch/scale.py``,
+# ``launch/serve_fleet.py --fast``)
+FAST_PATH: Dict[str, bool] = dict(array_state=True, incremental_ilp=True,
+                                  step_changed_lanes_only=True)
+
+
 def make_lane(pipeline: str, prof: Profiler, sim_cfg: SimConfig,
               trace: Sequence[Request], aggregate_ilp: bool = False,
-              cross_lane_batching: bool = False) -> Lane:
+              cross_lane_batching: bool = False,
+              incremental_ilp: bool = False) -> Lane:
     """One pipeline's slice of the fleet: the unmodified single-pipeline
     TridentServe stack over a chip range, inside the shared ``Lane``
     container — so the lane *is* the 1-pipeline special case."""
     return Lane(pipeline, prof,
                 TridentScheduler(prof, sim_cfg, trace,
                                  aggregate_ilp=aggregate_ilp,
-                                 cross_lane_batching=cross_lane_batching))
+                                 cross_lane_batching=cross_lane_batching,
+                                 incremental_ilp=incremental_ilp),
+                array_state=sim_cfg.array_state)
 
 
 # ---------------------------------------------------------------- schedulers
@@ -965,7 +983,9 @@ class FleetSimulator:
         # only constructed when the knob is on
         self._xl = None
         if self.cfg.cross_lane_batching:
-            self._xl = CrossLaneBatcher(max_batch=self.cfg.cross_lane_max_batch)
+            self._xl = CrossLaneBatcher(
+                max_batch=self.cfg.cross_lane_max_batch,
+                incremental=self.cfg.incremental_ilp)
         # elastic capacity (core/elastic.py): like the broker and the
         # batcher, the injector exists only when the knob is on
         self.injector: Optional[FaultInjector] = None
@@ -973,6 +993,14 @@ class FleetSimulator:
             self.injector = FaultInjector(self.cfg)
             if self._xl is not None:
                 self._xl.track_units = True
+        # O(changed-lanes) stepping: a wake-up visits only lanes with pending
+        # work or a dirty event.  Off under lending and cross-lane batching:
+        # the broker samples every lane's pressure each step, and the
+        # batcher must see every lane's decisions to fuse across them
+        self._lane_gating = (self.cfg.step_changed_lanes_only
+                             and not self.cfg.lending
+                             and not self.cfg.cross_lane_batching)
+        self._dirty: set = set()
         self._class_hist = (self.uses_forecast
                             and self.cfg.cross_lane_batching)
         if self._class_hist:
@@ -1058,7 +1086,8 @@ class FleetSimulator:
             lane = make_lane(pid, prof, self.cfg.lane_sim_cfg(budgets[pid]),
                              sub_traces[pid],
                              aggregate_ilp=self.cfg.aggregate_ilp,
-                             cross_lane_batching=self.cfg.cross_lane_batching)
+                             cross_lane_batching=self.cfg.cross_lane_batching,
+                             incremental_ilp=self.cfg.incremental_ilp)
             lane.engine = RuntimeEngine(
                 prof, self.plan.subplans[pid],
                 proactive_push=self.cfg.proactive_push,
@@ -1097,7 +1126,10 @@ class FleetSimulator:
         return any(lane.pending for lane in self.lanes.values())
 
     def still_pending(self, lane: str, rid: int) -> bool:
-        return self.lanes[lane].pending.has_rid(rid)
+        alive = self.lanes[lane].pending.has_rid(rid)
+        if alive and self._lane_gating:
+            self._dirty.add(lane)   # aging flip: dispatch rewards changed
+        return alive
 
     # -- one scheduler step ---------------------------------------------------
 
@@ -1108,6 +1140,7 @@ class FleetSimulator:
         n = len(trace)
         ai = self._ai
         clock = self.clock if self._track_flips else None
+        dirty = self._dirty if self._lane_gating else None
         # request_footprint is a pure function of the request class: cache
         # the final float per class
         fp_cache = self._fp_cache
@@ -1115,6 +1148,8 @@ class FleetSimulator:
             r = trace[ai]
             lane = self.lanes[r.pipeline]
             lane.admit(r, clock)
+            if dirty is not None:
+                dirty.add(r.pipeline)
             fk = (r.pipeline, r.resolution, r.seconds, r.cond_len)
             fp = fp_cache.get(fk)
             if fp is None:
@@ -1132,12 +1167,18 @@ class FleetSimulator:
         self._ai = ai
 
     def _drain(self, tau: float) -> None:
+        dirty = self._dirty if self._lane_gating else None
         inj = self.injector
         for t, _, pid, s, ptype, dur, members, units in self.clock.pop_due(tau):
             if inj is not None and units:
                 # degrade detection feed (per-unit vs pool mean); fused
                 # MERGED_LANE durations are skipped inside observe
                 inj.observe(self, pid, s, ptype, dur, members, units, t)
+            if dirty is not None:
+                if pid == MERGED_LANE:
+                    dirty.update(r.pipeline for r in members)
+                else:
+                    dirty.add(pid)
             if pid == MERGED_LANE:
                 # cross-lane fused launch: un-merge the one event back into
                 # per-lane accounting — each participating lane observes the
@@ -1168,7 +1209,22 @@ class FleetSimulator:
         if self.broker is not None:
             self.broker.step(self, tau)
         if self._xl is None:
-            for lane in self.lanes.values():
+            lanes = self.lanes.values()
+            if self._lane_gating:
+                # a lane must also wake when a retained Monitor sample exits
+                # its window: windowed rates (and the placement-switch
+                # trigger) can newly fire there with no lane event at all
+                dirty = self._dirty
+                for pid, lane in self.lanes.items():
+                    if pid in dirty:
+                        continue
+                    bnd = lane.monitor.next_window_boundary()
+                    if bnd is not None and bnd <= tau:
+                        dirty.add(pid)
+                lanes = [lane for pid, lane in self.lanes.items()
+                         if pid in dirty or lane.pending]
+                dirty.clear()
+            for lane in lanes:
                 lane.step(tau, self.clock,
                           lambda new_plan, t, lane=lane:
                               self._apply_lane_plan(lane, new_plan, t))
@@ -1374,6 +1430,18 @@ class FleetSimulator:
         for pid, lane in self.lanes.items():  # detlint: ignore[DET001] lanes dict is registry-ordered
             sub = new_plan.subplans[pid]
             prof = lane.prof
+            if (self._lane_gating and chip_map is None
+                    and new_plan.chip_ranges[pid] == self.plan.chip_ranges[pid]
+                    and sub.unit_size == self.plan.subplans[pid].unit_size
+                    and sub.placements == self.plan.subplans[pid].placements):
+                # O(changed-lanes) re-partition: this lane's chip range and
+                # sub-plan are unchanged, so no chip changed hands and no
+                # reload is owed; keep the live engine (its free_at state is
+                # what a rebuild would re-seed) and the retained sub-plan.
+                # (Not after a node loss, ``chip_map``: equal numeric ranges
+                # then map to other physical chips.)
+                new_plan.subplans[pid] = self.plan.subplans[pid]
+                continue
             lane.bank_engine_stats()
             engine = RuntimeEngine(
                 prof, sub, proactive_push=self.cfg.proactive_push,
@@ -1428,12 +1496,22 @@ class FleetSimulator:
         # (an aborted re-partition must leave the mix-shift trigger armed)
         self.fleet_sched.on_repartitioned(self, tau)
         self.repartition_log.append((tau, dict(budgets)))
+        if self._lane_gating:
+            # every lane's engine or plan may have moved: all must re-step
+            self._dirty.update(self.lanes)
         if self.injector is not None:
             # fresh engines and sub-plans: re-derive the injector's
             # overlays (slowdowns, quarantines, a pending drain)
             self.injector.after_repartition(self, tau)
 
     # -- lending and elastic capacity hooks ------------------------------------
+
+    def mark_lane_dirty(self, pid: str) -> None:
+        """A capacity or lending event changed this lane's dispatchable
+        state with no lane completion to show for it: under O(changed-lanes)
+        stepping the lane must still re-step this wake-up."""
+        if self._lane_gating:
+            self._dirty.add(pid)
 
     def _evict_prewarm_unit(self, pid: str, g: int) -> None:
         """Drop staged pre-warm marks on one unit's chips: the unit was

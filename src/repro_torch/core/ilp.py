@@ -37,14 +37,22 @@ kinds may mix in one instance; an all-scalar instance takes a leaner walk
 over the same nodes.  ``solve_grouped`` enters identical requests once with
 a count.
 
-Counterpart of ``repro/core/ilp.py``; its dense-DP fast path (``dp=True``,
-used only with ``incremental_ilp``) waits for the array-backed slice.
+``dp=True`` (the dispatcher's ``incremental`` mode) allows exact shortcuts
+that may pick another of several equal-reward optima, or the optimum where a
+node-capped search would stop at an incumbent: a fully slack instance takes
+each request's best option, a per-dimension decomposable one is solved by a
+dense multiple-choice knapsack DP (``_solve_dp_single_dim``), and the search
+walks identical requests in canonical (non-decreasing option) order.
+
+Counterpart of ``repro/core/ilp.py``.
 """
 from __future__ import annotations
 
 import dataclasses
 import itertools
 from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
 
 # deterministic time->node translation for the anytime cap (~1.3M nodes/s on
 # the reference's calibration box): a 50 ms dispatch budget is a 65k-node
@@ -99,8 +107,8 @@ class GroupedSolution:
 def solve_grouped(options: Sequence[Sequence[Option]],
                   budgets: Sequence[int], counts: Sequence[int],
                   node_cap: int = 200_000, time_cap: float = 0.2,
-                  warm: Optional[Dict[int, Sequence[Tuple[int, int]]]] = None
-                  ) -> GroupedSolution:
+                  warm: Optional[Dict[int, Sequence[Tuple[int, int]]]] = None,
+                  dp: bool = False) -> GroupedSolution:
     """Multiplicity-aware dispatch ILP: group g enters once with a count.
 
     ``options[g]`` is the option list shared by ``counts[g]`` identical
@@ -117,6 +125,7 @@ def solve_grouped(options: Sequence[Sequence[Option]],
 
     ``warm`` maps group index -> (dim, usage) pairs granted to the group on
     a previous solve; they seed the incumbent exactly like ``solve``'s.
+    ``dp`` is passed on to ``solve``.
     """
     total_budget = int(sum(budgets))
     slot_group: List[int] = []           # expanded slot -> group index
@@ -134,7 +143,7 @@ def solve_grouped(options: Sequence[Sequence[Option]],
             slot_group.append(g)
             slot_opts.append(opts)
     sol = solve(slot_opts, budgets, node_cap=node_cap, time_cap=time_cap,
-                warm=warm_slots or None)
+                warm=warm_slots or None, dp=dp)
     alloc: Dict[int, List[Option]] = {}
     for si, o in sol.choices.items():
         alloc.setdefault(slot_group[si], []).append(o)
@@ -175,9 +184,70 @@ def _greedy(options: Sequence[Sequence[Option]], budgets: List[int],
     return chosen, total
 
 
+def _solve_dp_single_dim(pruned: Sequence[Sequence[Option]], dim: int,
+                         cap: int) -> Tuple[Dict[int, Option], float]:
+    """Exact multiple-choice knapsack DP for an *effectively one-
+    dimensional* instance (every surviving option charges budget ``dim``):
+    the case where the search's additive suffix bound degrades, so a
+    saturated lane whose backlog competes for one placement type can burn
+    the whole node cap on a textbook knapsack.  O(requests * cap * options)
+    cells, exact and cap-free.
+
+    Deterministic: requests in index order, options in list order, a cell is
+    replaced only on a *strictly* better reward, and the reconstruction
+    walks a parent-choice table.
+    """
+    n = len(pruned)
+    # capacities beyond what every request's largest option could jointly
+    # consume are unreachable: clamping shrinks the table (val is
+    # monotone, so val[cap] is still the optimum)
+    cap = min(cap, sum(max((o.usage for o in opts), default=0)
+                       for opts in pruned))
+    val = np.zeros(cap + 1, dtype=np.float64)      # best reward at capacity <= c
+    take = np.full((n, cap + 1), -1, dtype=np.int32)
+    for r, opts in enumerate(pruned):
+        if not opts:
+            continue
+        best = val.copy()                          # skip branch
+        choice = take[r]
+        for oi, o in enumerate(opts):
+            u = o.usage
+            if u > cap:
+                continue
+            cand = val[:cap + 1 - u] + o.reward
+            seg = best[u:]
+            upd = cand > seg
+            seg[upd] = cand[upd]
+            choice[u:][upd] = oi
+        val = best
+    c = cap
+    picks: List[Tuple[int, Option]] = []
+    for r in range(n - 1, -1, -1):
+        oi = int(take[r, c])
+        if oi >= 0:
+            o = pruned[r][oi]
+            picks.append((r, o))
+            c -= o.usage
+    picks.reverse()
+    return dict(picks), float(val[cap])
+
+
+def _solution_of(best: Sequence[Optional[Option]]) -> Solution:
+    """The optimum of an instance no budget binds, from each request's
+    first-listed max-reward option (None: the request has none)."""
+    choices: Dict[int, Option] = {}
+    reward = 0.0
+    for r, o in enumerate(best):
+        if o is not None:
+            choices[r] = o
+            reward += o.reward
+    return Solution(choices=choices, reward=reward, nodes=0, optimal=True)
+
+
 def solve(options: Sequence[Sequence[Option]], budgets: Sequence[int],
           node_cap: int = 200_000, time_cap: float = 0.2,
-          warm: Optional[Dict[int, Tuple[int, int]]] = None) -> Solution:
+          warm: Optional[Dict[int, Tuple[int, int]]] = None,
+          dp: bool = False) -> Solution:
     """Maximize total reward.  ``options[r]`` lists request r's choices.
 
     ``warm`` maps request index -> (dim, usage) chosen on a previous solve
@@ -187,11 +257,48 @@ def solve(options: Sequence[Sequence[Option]], budgets: Sequence[int],
     ``time_cap`` is a *latency budget*, enforced deterministically: it is
     converted to a node budget at ``NODES_PER_SECOND``, so a capped solve
     stops at the same node on every machine and every run.
+
+    ``dp`` allows the exact shortcuts of the module docstring; without it
+    the search runs as it always has.
     """
     n = len(options)
     budgets = list(budgets)
     if time_cap is not None:
         node_cap = min(node_cap, max(1, int(time_cap * NODES_PER_SECOND)))
+
+    # all-scalar, fully slack instance (dp): the slack return below, with
+    # the feasibility filter and the slack analysis folded into one pass
+    # that builds no spans.  Most fleet dispatch instances are this; it
+    # falls through on the first tuple-dim option or a binding dimension.
+    if dp:
+        nb = len(budgets)
+        max_use_f = [0] * nb
+        fast_best: List[Optional[Option]] = []
+        scalar = True
+        for opts in options:
+            best = None
+            per_dim: Dict[int, int] = {}
+            for o in opts:
+                if o.reward <= 0:
+                    continue
+                d = o.dim
+                if isinstance(d, tuple):
+                    scalar = False
+                    break
+                u = o.usage
+                if u > budgets[d]:
+                    continue
+                if u > per_dim.get(d, 0):
+                    per_dim[d] = u
+                if best is None or o.reward > best.reward:
+                    best = o
+            if not scalar:
+                break
+            for d, u in per_dim.items():
+                max_use_f[d] += u
+            fast_best.append(best)
+        if scalar and all(max_use_f[d] <= budgets[d] for d in range(nb)):
+            return _solution_of(fast_best)
 
     # feasibility filter: an option can never fit if its usage alone
     # exceeds its dimension's budget (checked per consumed dimension).
@@ -227,6 +334,12 @@ def solve(options: Sequence[Sequence[Option]], budgets: Sequence[int],
         for d, u in per_dim.items():
             max_use[d] += u
     slack = [max_use[d] <= budgets[d] for d in range(len(budgets))]
+
+    # fully slack instance (dp): even if every request takes its largest
+    # option in every dimension it touches, no budget binds
+    if dp and all(slack):
+        return _solution_of([max(opts, key=lambda o: o.reward) if opts else None
+                             for opts in feasible])
 
     # dominance prune per request:
     #   * same dims: dominated in (reward, per-dim usage) — classic Pareto;
@@ -266,6 +379,33 @@ def solve(options: Sequence[Sequence[Option]], budgets: Sequence[int],
         pruned.append([t[0] for t in keep])
         pspans.append([t[1] for t in keep])
 
+    # per-dimension decomposable instance (dp): when every request's
+    # surviving options charge one scalar dimension, requests partition by
+    # dimension into independent multiple-choice knapsacks (budgets are per
+    # dimension, rewards add across requests), each solved by the DP
+    if dp:
+        decomposable = True
+        req_dim: Dict[int, object] = {}
+        for r, opts in enumerate(pruned):
+            dims_r = {o.dim for o in opts}
+            if len(dims_r) > 1 or any(isinstance(d, tuple) for d in dims_r):
+                decomposable = False
+                break
+            if dims_r:
+                req_dim[r] = next(iter(dims_r))
+        if decomposable and req_dim:
+            choices = {}
+            reward = 0.0
+            for d in sorted(set(req_dim.values())):
+                rs = [r for r in range(n) if req_dim.get(r) == d]
+                sub_choices, sub_reward = _solve_dp_single_dim(
+                    [pruned[r] for r in rs], d, int(budgets[d]))
+                for i, o in sub_choices.items():
+                    choices[rs[i]] = o
+                reward += sub_reward
+            return Solution(choices=choices, reward=reward, nodes=0,
+                            optimal=True)
+
     # order: largest best-reward first (tightens the additive bound quickly);
     # requests with *identical* option lists sort adjacently so the DFS can
     # break their symmetry (steady traffic yields many same-class requests
@@ -284,6 +424,14 @@ def solve(options: Sequence[Sequence[Option]], budgets: Sequence[int],
     for j in range(n - 2, -1, -1):
         if sig[order[j]] == sig[order[j + 1]]:
             skip_to[j] = skip_to[j + 1]
+    # canonical form (dp): within a run of identical requests, option
+    # indices are non-decreasing along the run.  Every assignment permutes
+    # into one with the same reward, so the optimum's value is untouched,
+    # but m identical requests with c options cost C(m+c, c) states instead
+    # of (c+1)^m.  The canonical optimum may map options onto members
+    # differently than the first-found one, hence opt-in.
+    same_as_next = [j + 1 < n and sig[order[j]] == sig[order[j + 1]]
+                    for j in range(n)] if dp else [False] * n
 
     seed: Dict[int, Option] = {}
     if warm:
@@ -348,8 +496,12 @@ def solve(options: Sequence[Sequence[Option]], budgets: Sequence[int],
                 rem[o.dim] += o.usage
         dfs(skip_to[j], rem, cap_rem, cur, chosen)
 
-    def dfs_spans(j: int, rem: List[int], cap_rem: int, cur: float,
-                  chosen: Dict[int, Option]):
+    def dfs_canon(j: int, rem: List[int], cap_rem: int, cur: float,
+                  chosen: Dict[int, Option], min_opt: int):
+        """``dfs`` in canonical form (``dp``): ``min_opt`` is the option
+        floor within a run of identical requests.  Kept apart from ``dfs``:
+        one walk carrying the floor made the plain search slower a node on
+        the card's host (phase 10's predictive run)."""
         nonlocal best_reward_found, best_choices, nodes, capped
         if capped:
             return
@@ -368,7 +520,42 @@ def solve(options: Sequence[Sequence[Option]], budgets: Sequence[int],
             return
         r = order[j]
         opts_r = by_reward[r]
-        for i, (sp, use) in enumerate(by_spans[r]):
+        chain = same_as_next[j]
+        for i in range(min_opt, len(opts_r)):
+            o = opts_r[i]
+            if o.usage <= rem[o.dim]:
+                rem[o.dim] -= o.usage
+                chosen[r] = o
+                dfs_canon(j + 1, rem, cap_rem - o.usage, cur + o.reward,
+                          chosen, i if chain else 0)
+                del chosen[r]
+                rem[o.dim] += o.usage
+        dfs_canon(skip_to[j], rem, cap_rem, cur, chosen, 0)
+
+    def dfs_spans(j: int, rem: List[int], cap_rem: int, cur: float,
+                  chosen: Dict[int, Option], min_opt: int = 0):
+        nonlocal best_reward_found, best_choices, nodes, capped
+        if capped:
+            return
+        nodes += 1
+        if nodes >= node_cap:
+            capped = True
+            return
+        if cur > best_reward_found:
+            best_reward_found = cur
+            best_choices = dict(chosen)
+        if j >= n:
+            return
+        stop = j + cap_rem
+        bound = suffix[j] - suffix[stop if stop < n else n]
+        if cur + bound <= best_reward_found + 1e-12:
+            return
+        r = order[j]
+        opts_r = by_reward[r]
+        spans_r = by_spans[r]
+        chain = same_as_next[j]
+        for i in range(min_opt, len(opts_r)):
+            sp, use = spans_r[i]
             for d, u in sp:
                 if u > rem[d]:
                     break
@@ -377,14 +564,20 @@ def solve(options: Sequence[Sequence[Option]], budgets: Sequence[int],
                 for d, u in sp:
                     rem[d] -= u
                 chosen[r] = o
-                dfs_spans(j + 1, rem, cap_rem - use, cur + o.reward, chosen)
+                dfs_spans(j + 1, rem, cap_rem - use, cur + o.reward, chosen,
+                          i if chain else 0)
                 del chosen[r]
                 for d, u in sp:
                     rem[d] += u
         dfs_spans(skip_to[j], rem, cap_rem, cur, chosen)
 
     scalar = all(len(sp) == 1 for sps in pspans for sp in sps)
-    (dfs if scalar else dfs_spans)(0, list(budgets), sum(budgets), 0.0, {})
+    if not scalar:
+        dfs_spans(0, list(budgets), sum(budgets), 0.0, {})
+    elif dp:
+        dfs_canon(0, list(budgets), sum(budgets), 0.0, {}, 0)
+    else:
+        dfs(0, list(budgets), sum(budgets), 0.0, {})
     return Solution(choices=best_choices, reward=best_reward_found,
                     nodes=nodes, optimal=not capped)
 

@@ -190,6 +190,8 @@ class LendingBroker:
         # pre-warm marks there are physically overwritten (a stale
         # mark would under-charge the next re-partition's reload)
         fleet._evict_prewarm_unit(lu.pipeline, lu.unit)
+        fleet.mark_lane_dirty(lu.pipeline)
+        fleet.mark_lane_dirty(borrower)
 
     # ---------------------------------------------------------------- returns
 
@@ -217,6 +219,8 @@ class LendingBroker:
         self.reloads += 1
         self.active.remove(loan)
         self._sync_borrowed(fleet, loan.borrower)
+        fleet.mark_lane_dirty(loan.lender)
+        fleet.mark_lane_dirty(loan.borrower)
 
     def release_all(self, fleet: "FleetSimulator", tau: float) -> None:
         """Force-return every loan (called right before a re-partition —

@@ -15,8 +15,10 @@ window size — this sits on the scheduler wake-up hot path.
 (core/fleet.py): demand, SLO attainment, backlog pressure and idle supply,
 and the rate and class histories the demand forecaster fits.
 
-Counterpart of ``repro/core/monitor.py``: the array-backed window columns
-(``_Cols``) wait for the array-backed slice.
+``Monitor(array_state=True)`` keeps its samples in flat parallel columns
+(``_Cols``) instead of deques of tuples, with the same window sums.
+
+Counterpart of ``repro/core/monitor.py``.
 """
 from __future__ import annotations
 
@@ -25,6 +27,43 @@ from typing import Deque, Dict, List, Optional, Tuple
 
 SWITCH_RATIO = 1.5
 MIN_SAMPLES = 8
+
+
+class _Cols:
+    """Append-only parallel sample columns with a head cursor: the
+    array-state twin of a deque of tuples.  Appends go at the tail, trims
+    advance the head; the dead prefix is compacted away once it dominates
+    the buffer, so both stay O(1) amortized and memory stays window-bounded.
+    Columns are plain lists (every consumer reads scalars, and a list append
+    is cheaper than a float64 element store); values are stored untouched,
+    so the window sums are the deque path's bit for bit."""
+
+    __slots__ = ("t", "cols", "h", "n")
+
+    def __init__(self, n_cols: int):
+        self.t: List[float] = []
+        self.cols: List[List[float]] = [[] for _ in range(n_cols)]
+        self.h = 0          # head: index of the oldest retained sample
+        self.n = 0          # tail: one past the newest sample
+
+    def __len__(self) -> int:
+        return self.n - self.h
+
+    def append(self, t: float, *vals: float) -> None:
+        h = self.h
+        if h > 8192 and 2 * h > self.n:
+            del self.t[:h]
+            for c in self.cols:
+                del c[:h]
+            self.n -= h
+            self.h = 0
+        self.t.append(t)
+        for c, v in zip(self.cols, vals):
+            c.append(v)
+        self.n += 1
+
+    def head_t(self) -> Optional[float]:
+        return self.t[self.h] if self.n > self.h else None
 
 
 def next_boundary(*windows) -> Optional[float]:
@@ -38,12 +77,25 @@ def next_boundary(*windows) -> Optional[float]:
 
 
 class Monitor:
-    """Per-lane window tracker."""
+    """Per-lane window tracker; ``array_state=True`` swaps the deque-of-
+    tuples sample stores for flat parallel columns (``_Cols``) with stage
+    and placement-type strings interned to integer codes.  The incremental
+    aggregates (``_stage_counts`` / ``_ptype_sums`` / ``_ptype_counts``) are
+    shared by both paths and updated with the same float adds and subtracts
+    in the same order, so every query is bit-identical either way."""
 
-    def __init__(self, t_win: float = 180.0):
+    def __init__(self, t_win: float = 180.0, array_state: bool = False):
         self.t_win = t_win
-        self._completions: Deque[Tuple[float, str, str, float]] = collections.deque()
-        self._backlog: Deque[Tuple[float, int, int]] = collections.deque()
+        self._arr = bool(array_state)
+        if self._arr:
+            self._c = _Cols(3)      # (stage code, ptype code, duration)
+            self._b = _Cols(2)      # (pending, idle primary)
+            self._code: Dict[str, int] = {}
+            self._name: List[str] = []
+        else:
+            self._completions: Deque[Tuple[float, str, str, float]] = \
+                collections.deque()
+            self._backlog: Deque[Tuple[float, int, int]] = collections.deque()
         self.last_switch: float = -1e9
         # incremental window aggregates (kept in lockstep with the samples)
         self._stage_counts: Dict[str, int] = collections.defaultdict(int)
@@ -55,11 +107,22 @@ class Monitor:
         # recorded sample (``_trim`` sits on the per-sample hot path)
         self._trim_due: float = float("inf")
 
+    def _intern(self, s: str) -> int:
+        code = self._code.get(s)
+        if code is None:
+            code = self._code[s] = len(self._name)
+            self._name.append(s)
+        return code
+
     # -- recording -------------------------------------------------------------
 
     def record_stage(self, tau: float, stage: str, ptype: str,
                      duration: float = 0.0):
-        self._completions.append((tau, stage, ptype, duration))
+        if self._arr:
+            self._c.append(tau, self._intern(stage), self._intern(ptype),
+                           duration)
+        else:
+            self._completions.append((tau, stage, ptype, duration))
         self._stage_counts[stage] += 1
         if duration > 0:
             self._ptype_sums[ptype] += duration
@@ -69,7 +132,10 @@ class Monitor:
         self._trim(tau)
 
     def record_backlog(self, tau: float, pending: int, idle_primary: int):
-        self._backlog.append((tau, pending, idle_primary))
+        if self._arr:
+            self._b.append(tau, pending, idle_primary)
+        else:
+            self._backlog.append((tau, pending, idle_primary))
         if tau + self.t_win < self._trim_due:
             self._trim_due = tau + self.t_win
         self._trim(tau)
@@ -81,6 +147,28 @@ class Monitor:
         if tau <= self._trim_due:
             return
         cutoff = tau - self.t_win
+        if self._arr:
+            c = self._c
+            ct, cs, cp, cd = c.t, c.cols[0], c.cols[1], c.cols[2]
+            h, n = c.h, c.n
+            while h < n and ct[h] < cutoff:
+                self._stage_counts[self._name[int(cs[h])]] -= 1
+                dur = float(cd[h])
+                if dur > 0:
+                    p = self._name[int(cp[h])]
+                    self._ptype_sums[p] -= dur
+                    self._ptype_counts[p] -= 1
+                h += 1
+            c.h = h
+            b = self._b
+            h, n, bt = b.h, b.n, b.t
+            while h < n and bt[h] < cutoff:
+                h += 1
+            b.h = h
+            heads = [t for t in (c.head_t(), b.head_t()) if t is not None]
+            self._trim_due = (min(heads) + self.t_win) if heads \
+                else float("inf")
+            return
         q = self._completions
         while q and q[0][0] < cutoff:
             _, s, p, dur = q.popleft()
@@ -99,8 +187,16 @@ class Monitor:
     def next_window_boundary(self) -> Optional[float]:
         """Earliest future time a retained sample exits the sliding window
         (the clock's Monitor-window wake source; see ``next_boundary``)."""
+        if self._arr:
+            heads = [t + self.t_win for t in (self._c.head_t(), self._b.head_t())
+                     if t is not None]
+            return min(heads) if heads else None
         return next_boundary((self._completions, self.t_win),
                              (self._backlog, self.t_win))
+
+    def stage_rates(self, tau: float) -> Dict[str, float]:
+        self._trim(tau)
+        return {s: self._stage_counts.get(s, 0) / self.t_win for s in "EDC"}
 
     def placement_rates(self, tau: float, plan_hist: Dict[str, int],
                         min_count: int = 8) -> Dict[str, float]:
@@ -125,7 +221,14 @@ class Monitor:
         # congestion: backlog persistently exceeds idle primary capacity
         # (peek the newest MIN_SAMPLES right-to-left; copying the whole
         # window deque per wake-up is O(T_win))
-        if len(self._backlog) >= MIN_SAMPLES:
+        if self._arr:
+            b = self._b
+            if len(b) >= MIN_SAMPLES:
+                bp, bi = b.cols[0], b.cols[1]
+                if all(bp[j] > 2 * max(1, int(bi[j]))
+                       for j in range(b.n - 1, b.n - 1 - MIN_SAMPLES, -1)):
+                    trigger = True
+        elif len(self._backlog) >= MIN_SAMPLES:
             it = reversed(self._backlog)
             if all(p > 2 * max(1, i)
                    for _, p, i in (next(it) for _ in range(MIN_SAMPLES))):

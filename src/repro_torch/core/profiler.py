@@ -46,11 +46,15 @@ class Hardware:
     inter_node_bw: float         # chip-to-chip bytes/s across nodes
     host_bw: float               # host<->device staging bytes/s
     comm_group_init: float       # s, lazy (non-hot-set) communicator build
+    link_domain_chips: int = 0   # chips one ``link_bw`` domain spans (an SP
+                                 # group wider than this all-to-alls at
+                                 # ``inter_node_bw``); 0: every chip
 
 
 # NVIDIA H100 SXM. Data sheet: 989 TFLOP/s dense bf16, 3.35 TB/s HBM3, 80 GB,
-# NVLink 900 GB/s; inter-node, one ConnectX-7 NIC of 400 Gb/s per GPU in an
-# HGX H100 node. The reserve (CUDA context, library workspaces) is an
+# NVLink 900 GB/s within an HGX H100 node of 8 GPUs; inter-node, one
+# ConnectX-7 NIC of 400 Gb/s per GPU (not measured: no run here has more
+# than one node). The reserve (CUDA context, library workspaces) is an
 # estimate. The rest is from one chip run of ``chip_smoke.py`` on an NVIDIA
 # H100 80GB HBM3 at 700.00 W, each stage on one chip after an untimed run at
 # its shape:
@@ -69,20 +73,24 @@ H100_SXM = Hardware(
     name="H100-SXM", peak_flops=989e12, hbm_bw=3.35e12, link_bw=900e9,
     hbm_bytes=80 * 10 ** 9, mem_reserve=2 ** 30, mfu=0.6279, mfu_conv=0.3761,
     seq_mfu_knee=0, dispatch_overhead=8.11e-5, inter_node_bw=400e9 / 8,
-    host_bw=51.51e9, comm_group_init=0.52881)
+    host_bw=51.51e9, comm_group_init=0.52881, link_domain_chips=8)
 
 # The JAX reference's constant set (a TPU v5e chip), copied from its
 # profiler. Not the port's hardware: it exists so that the port's host paths
 # can be held against the reference's committed results
-# (``launch/serve_fleet.py --hw reference``).
+# (``launch/serve_fleet.py --hw reference``). Its links span every chip, as
+# the reference prices its cross-node SP.
 REFERENCE_HW = Hardware(
     name="reference", peak_flops=197e12, hbm_bw=819e9, link_bw=50e9,
     hbm_bytes=16 * 2 ** 30, mem_reserve=512 * 2 ** 20, mfu=0.5, mfu_conv=0.12,
     seq_mfu_knee=384, dispatch_overhead=0.004, inter_node_bw=25e9,
     host_bw=10e9, comm_group_init=0.05)
 
-# SP degrees in scheduling units; those above one node's worth are the
-# reference's cross-node SP, which is not ported, so they are never chosen
+# the constant sets the launchers' ``--hw`` option names
+HARDWARE = {"h100": H100_SXM, "reference": REFERENCE_HW}
+
+# SP degrees in scheduling units; those above one node's worth (8 chips) are
+# reachable only with cross-node SP (``Profiler(cross_node_sp=True)``)
 PARALLEL_DEGREES = (1, 2, 4, 8, 16, 32)
 EFFICIENCY_THRESHOLD = 0.8   # paper footnote 4/5
 
@@ -105,15 +113,20 @@ class Profiler:
     """Cost/memory model for one diffusion pipeline."""
 
     def __init__(self, cfg: pipe_lib.PipelineConfig, hw: Hardware = H100_SXM,
-                 force_k_min: Optional[int] = None):
+                 force_k_min: Optional[int] = None, cross_node_sp: bool = False):
         self.cfg = cfg
         self.hw = hw
         self.info = self._stage_infos(cfg)
         # force_k_min=1 models baselines that do not use the App.-E.2 MP fold
         self.k_min = force_k_min if force_k_min else self._compute_k_min()
         # SP instances are intra-node in the paper (§6.2, a PCIe-box
-        # constraint); on H100 nodes SP stays inside the 8-GPU NVLink domain
-        self.max_degree_units = max(1, 8 // self.k_min)
+        # constraint), so by default SP stays inside one 8-GPU node.
+        # cross_node_sp extends the degrees to 32 units across nodes, still
+        # filtered by efficiency; a group wider than the hardware's link
+        # domain is priced at its inter-node rate (``_link_bw``)
+        self.cross_node_sp = cross_node_sp
+        base = max(1, 8 // self.k_min)
+        self.max_degree_units = 32 // self.k_min if cross_node_sp else base
         # memo tables keyed by request class — request mixes repeat heavily,
         # exactly the paper's "pre-profiled candidate resolutions" (§5.1)
         self._time_memo: Dict[Tuple, float] = {}
@@ -243,6 +256,12 @@ class Profiler:
         self._time_memo[key] = t
         return t
 
+    def _link_bw(self, k_chips: int) -> float:
+        """Bytes/s of an SP group's exchange: the node's links, or the
+        inter-node rate once the group spans more than one link domain."""
+        dom = self.hw.link_domain_chips
+        return self.hw.link_bw if dom == 0 or k_chips <= dom else self.hw.inter_node_bw
+
     def _stage_time_impl(self, req: Request, stage: str, k_chips: int) -> float:
         hw = self.hw
         flops = self.stage_flops(req, stage)
@@ -260,14 +279,16 @@ class Profiler:
             # Ulysses: 2 all-to-alls per layer per step; (k-1)/k^2 wire factor
             a2a = l * i.d_model * 2
             comm = (self.cfg.num_steps * i.num_layers * 2 * a2a
-                    * (k_chips - 1) / (k_chips ** 2) / hw.link_bw) if k_chips > 1 else 0.0
+                    * (k_chips - 1) / (k_chips ** 2) / self._link_bw(k_chips)
+                    ) if k_chips > 1 else 0.0
             return max(compute, mem) + comm + hw.dispatch_overhead
         # Decode: conv pyramid; halo exchange + per-chip launch overhead make
         # spatial sharding scale poorly (paper Fig. 3 right)
         mem = hbm / (k_chips * hw.hbm_bw)
         compute = flops / (k_chips * hw.peak_flops * hw.mfu_conv)
         comm = ((self.stage_act_bytes(req, "C") * 0.3 * (k_chips - 1)
-                 / k_chips / hw.link_bw) + (k_chips - 1) * 2e-3) if k_chips > 1 else 0.0
+                 / k_chips / self._link_bw(k_chips)) + (k_chips - 1) * 2e-3
+                ) if k_chips > 1 else 0.0
         return max(mem, compute) + comm + hw.dispatch_overhead
 
     def batched_stage_time(self, req: Request, stage: str, k_chips: int,

@@ -24,8 +24,11 @@ dispatch):
 The shared-cluster ``FleetSimulator`` (core/fleet.py) drives the same kernel
 with one Lane per pipeline.
 
-Counterpart of ``repro/core/simulator.py``: cross-node SP and the
-array-backed lane state are not ported yet.
+``SimConfig.array_state`` backs the lane's pending set and monitor with
+flat columns (the same trajectory), and ``run_sim(cross_node_sp=True)``
+lets SP groups span nodes (``Profiler.cross_node_sp``).
+
+Counterpart of ``repro/core/simulator.py``.
 """
 from __future__ import annotations
 
@@ -36,6 +39,7 @@ import repro_torch.configs as configs
 from repro_torch.core import workloads
 from repro_torch.core.clock import (ClockConfig, EventClock, Lane, Scheduler,
                                     monitor_boundary_source, replace_capable)
+from repro_torch.core.dispatcher import DispatchDecision
 from repro_torch.core.profiler import H100_SXM, Hardware, Profiler
 from repro_torch.core.request import Request
 from repro_torch.core.runtime import RuntimeEngine
@@ -71,6 +75,12 @@ class SimConfig:
                                       # as a wake source.  Opt-in: extra
                                       # wake-ups (even no-op ones) shift
                                       # heartbeat phase
+    array_state: bool = False         # array-backed lane state: flat
+                                      # deadline/window columns behind the
+                                      # PendingSet/Monitor instead of walks
+                                      # over Request objects; the same
+                                      # trajectory bit for bit (stable
+                                      # argsort, same-order window sums)
 
     def clock_cfg(self, horizon: float) -> ClockConfig:
         return ClockConfig(tick=self.tick, horizon=horizon, mode=self.mode,
@@ -97,6 +107,9 @@ class SimResult:
     engine_stats: Dict[str, float]
     solver_ms: float = 0.0
     sched_wakeups: int = 0            # scheduler invocations (event vs tick)
+    # requests by the SP degree (units) of their Diffuse launch; the port's
+    # own field (the reference's SimResult has no such field)
+    degree_histogram: Dict[int, int] = dataclasses.field(default_factory=dict)
 
     def summary(self) -> str:
         if self.oom:
@@ -120,7 +133,8 @@ class Simulator(Lane):
 
     def __init__(self, pipeline_id: str, scheduler: Scheduler,
                  trace: Sequence[Request], sim_cfg: SimConfig):
-        super().__init__(pipeline_id, scheduler.prof, scheduler)
+        super().__init__(pipeline_id, scheduler.prof, scheduler,
+                         array_state=sim_cfg.array_state)
         self.trace = sorted(trace, key=lambda r: r.arrival)
         self.cfg = sim_cfg
         self.clock = EventClock(sim_cfg.clock_cfg(self._horizon()))
@@ -147,6 +161,19 @@ class Simulator(Lane):
         if self._ai < len(self.trace):
             return self.trace[self._ai].arrival
         return None
+
+    @property
+    def _events(self):
+        """The clock's completion heap (for tests and introspection)."""
+        return self.clock.completions
+
+    @property
+    def sched_wakeups(self) -> int:
+        return self.clock.wakeups
+
+    def record_decision(self, dec: DispatchDecision,
+                        times: Dict[str, Tuple[float, float]]):
+        self.record(dec, times, self.clock)
 
     # ---------------------------------------------------------------- clock protocol
 
@@ -239,17 +266,20 @@ class Simulator(Lane):
             vr_histogram=dict(self.vr_histogram),
             engine_stats=stats,
             solver_ms=1e3 * self.sched.solver_time,
-            sched_wakeups=self.clock.wakeups)
+            sched_wakeups=self.clock.wakeups,
+            degree_histogram=dict(sorted(self.degree_histogram.items())))
 
 
 def run_sim(pipeline_id: str, scheduler_cls, workload: str, duration: float,
             sim_cfg: Optional[SimConfig] = None, seed: int = 0,
             rate: Optional[float] = None, slo_scale: Optional[float] = None,
-            hw: Hardware = H100_SXM, **sched_kw) -> SimResult:
+            cross_node_sp: bool = False, hw: Hardware = H100_SXM,
+            **sched_kw) -> SimResult:
     """Convenience: build profiler (on ``hw``) + trace + scheduler and run."""
     sim_cfg = sim_cfg or SimConfig()
     pcfg = configs.get(pipeline_id)
-    prof = Profiler(pcfg, hw=hw, force_k_min=getattr(scheduler_cls, "FORCE_KMIN", None))
+    prof = Profiler(pcfg, hw=hw, force_k_min=getattr(scheduler_cls, "FORCE_KMIN", None),
+                    cross_node_sp=cross_node_sp)
     kw = {} if slo_scale is None else {"slo_scale": slo_scale}
     trace = workloads.make_trace(pipeline_id, workload, duration, prof,
                                  seed=seed, rate=rate, **kw)

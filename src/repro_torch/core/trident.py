@@ -2,8 +2,7 @@
 Algorithm 1 (bootstrap placement -> online dispatch -> adaptive re-placement
 via Adjust-on-Dispatch).
 
-Counterpart of ``repro/core/trident.py``: the incremental ILP and the
-array-backed deadline order wait for the array-backed slice.
+Counterpart of ``repro/core/trident.py``.
 """
 from __future__ import annotations
 
@@ -26,12 +25,19 @@ class TridentScheduler(Scheduler):
                  enable_switch: bool = True, stage_aware: bool = True,
                  use_ilp: bool = True, enable_batching: bool = True,
                  aggregate_ilp: bool = False,
-                 cross_lane_batching: bool = False):
+                 cross_lane_batching: bool = False,
+                 incremental_ilp: bool = False):
         super().__init__(prof, sim_cfg, trace)
         self.orch = Orchestrator(prof, num_chips=sim_cfg.num_chips)
         # aggregate_ilp: multiplicity-aware solver aggregation (identical
-        # pending requests enter once with a count); the fleet turns it on
-        self.disp = Dispatcher(prof, aggregate=aggregate_ilp)
+        # pending requests enter once with a count); the fleet turns it on.
+        # incremental_ilp: persist the dispatch model across wake-ups and
+        # skip the solve when it is unchanged (``Dispatcher.incremental``)
+        self.disp = Dispatcher(prof, aggregate=aggregate_ilp,
+                               incremental=incremental_ilp)
+        # array-backed lane state (SimConfig.array_state): the deadline
+        # order comes from the PendingSet's deadline column, the same order
+        self._array_state = sim_cfg.array_state
         # fleet cross-lane batching: when on, tick() annotates decisions
         # whose auxiliary E/C runs are fusable across lanes (dec.xl_candidate)
         # for the fleet's CrossLaneBatcher; off leaves decisions untouched
@@ -115,7 +121,9 @@ class TridentScheduler(Scheduler):
         chunk_of = {}
         if self.enable_batching:
             groups = {}
-            for r in sorted(pending, key=lambda r: r.deadline):
+            ordered = (pending.by_deadline() if self._array_state
+                       else sorted(pending, key=lambda r: r.deadline))
+            for r in ordered:
                 groups.setdefault(r.key(), []).append(r)
             pending = []
             for key, pool in groups.items():
@@ -129,11 +137,17 @@ class TridentScheduler(Scheduler):
         # a fleet Lane carries its borrowed foreign E/C units (unit lending)
         # and its draining units (elastic capacity); the plain Simulator
         # has neither
+        reuses0 = self.disp.solve_reuses
         out = self.disp.dispatch(pending, sim.engine.plan, idle,
                                  sim.engine.free_at(), tau,
                                  borrowed=getattr(sim, "borrowed_units", None),
                                  draining=getattr(sim, "draining_units",
                                                   None) or None)
+        if self.disp.solve_reuses != reuses0:
+            # credit persisted-model solve skips to the engine serving this
+            # lane (banked across fleet re-partitions like every EngineStats
+            # counter); without incremental_ilp it never moves
+            sim.engine.stats.ilp_reuses += self.disp.solve_reuses - reuses0
         if self.enable_batching:
             for dec in out:
                 chunk = chunk_of.get(dec.request.rid, [dec.request])

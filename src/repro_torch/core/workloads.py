@@ -4,8 +4,8 @@ Counterpart of ``repro/core/workloads.py``: the single-pipeline traces, the
 fleet's heterogeneous traces (the shared-cluster mix flip, the bursty-E/C
 lending scenario, the diurnal predictive scenario, the cross-lane batching
 burst storm) and the elastic scenario's capacity schedules (preemption
-storms, a region evacuation).  The scale tier's trace waits for the
-array-backed slice.  Mix weights and request rates follow Table 5; Poisson
+storms, a region evacuation) and the 8-pipeline scale tier
+(``launch/scale.py``).  Mix weights and request rates follow Table 5; Poisson
 arrivals.
 The Proprietary trace has the diurnal/tidal shape of Fig. 9, scaled to the
 Steady request budget (Appendix D.1). Each request's deadline is
@@ -296,6 +296,54 @@ def cross_batch_trace(duration: float, profs: Dict[str, Profiler],
     out = base + wave
     out.sort(key=lambda r: (r.arrival, r.pipeline, r.rid))
     return out
+
+
+# Scale tier (``launch/scale.py``): an 8-pipeline, 4096-chip, ~1M-request
+# trace that exercises the fleet's host path at its largest size.  The 8
+# pipelines are the 4 profiled configs plus 4 registry aliases that SHARE
+# the base Profiler instances (``PipelineRegistry.register(alias,
+# profiler=...)``): 8 independent lanes with 8 chip ranges and 8 dispatch
+# models, with the profiler tables built once per config.  Rates are per
+# 4096 chips and scale linearly with the chip count (the smoke tier runs
+# 512 chips / 100k requests at rates/8), at the same hot-but-not-saturated
+# operating point as FLEET_RATES.
+SCALE_ALIASES: Dict[str, str] = {
+    "sd3-v2": "sd3", "flux-v2": "flux", "cogvideox-v2": "cogvideox",
+    "hunyuanvideo-v2": "hunyuanvideo",
+}
+SCALE_PIPELINES: Tuple[str, ...] = (
+    "sd3", "flux", "cogvideox", "hunyuanvideo",
+    "sd3-v2", "flux-v2", "cogvideox-v2", "hunyuanvideo-v2",
+)
+SCALE_BASE_CHIPS = 4096
+SCALE_RATES: Dict[str, float] = {
+    "sd3": 240.0, "flux": 12.0, "cogvideox": 8.0, "hunyuanvideo": 4.0,
+    "sd3-v2": 240.0, "flux-v2": 12.0, "cogvideox-v2": 8.0,
+    "hunyuanvideo-v2": 4.0,
+}
+
+
+def scale_duration(n_requests: int,
+                   num_chips: int = SCALE_BASE_CHIPS) -> float:
+    """Trace duration whose Poisson streams yield ``n_requests`` arrivals
+    in expectation at the chip-scaled SCALE_RATES."""
+    total = sum(SCALE_RATES.values()) * (num_chips / SCALE_BASE_CHIPS)  # detlint: ignore[DET001] module-literal dict: insertion order is fixed
+    return n_requests / total
+
+
+def scale_trace(duration: float, profs: Dict[str, Profiler], seed: int = 0,
+                num_chips: int = SCALE_BASE_CHIPS,
+                level: str = "medium") -> List[Request]:
+    """The scale tier's trace: ``fleet_trace`` over the 8 SCALE_PIPELINES
+    at chip-scaled rates; aliases draw from their base config's Table 5
+    mix (``mix_override``: aliases have no MIXES entry of their own).
+    ``profs`` must map every alias too (share the base Profiler)."""
+    scale = num_chips / SCALE_BASE_CHIPS
+    rates = {p: r * scale for p, r in SCALE_RATES.items()}
+    mix = {alias: MIXES[base][level]
+           for alias, base in SCALE_ALIASES.items()}
+    return fleet_trace(SCALE_PIPELINES, duration, profs, seed=seed,
+                       rates=rates, level=level, mix_override=mix)
 
 
 # Elastic, failure-prone fleet scenario (``launch/serve_fleet.py --scenario

@@ -25,12 +25,14 @@ Every stage is priced by the profiler on a named ``Hardware`` set:
 ``H100_SXM`` (``--hw h100``, the default), fitted to the stage times
 ``chip_smoke.py`` measures on one H100, or ``REFERENCE_HW``
 (``--hw reference``), the JAX reference's constants — with those and a
-scenario's own sizes, ``--json`` writes the reference's BENCH file.  No
+scenario's own sizes, ``--json`` writes the reference's BENCH file.
+``--fast`` turns on the fleet's three host-path switches (``array_state``,
+``incremental_ilp``, ``step_changed_lanes_only``; ``launch/scale.py``).  No
 tensor is computed, so it needs no card.
 
   PYTHONPATH=src python -m repro_torch.launch.serve_fleet --scenario shared \\
       --chips 128 --rate-scale 0.25 [--modes static,adaptive] [--smoke|--full] \\
-      [--hw reference] [--duration S] [--json out.json]
+      [--hw reference] [--duration S] [--fast] [--json out.json]
 
 Counterpart of the fleet scenarios of ``benchmarks/e2e.py``
 (``run_mixed_shared``, ``run_predictive``, ``run_cross_batch``,
@@ -45,11 +47,9 @@ import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 from repro_torch.core import workloads
-from repro_torch.core.fleet import (FleetConfig, FleetResult, PipelineRegistry,
-                                    run_fleet)
-from repro_torch.core.profiler import H100_SXM, REFERENCE_HW, Hardware
-
-HARDWARE = {"h100": H100_SXM, "reference": REFERENCE_HW}
+from repro_torch.core.fleet import (FAST_PATH, FleetConfig, FleetResult,
+                                    PipelineRegistry, run_fleet)
+from repro_torch.core.profiler import HARDWARE, H100_SXM, Hardware
 
 # -- shared cluster: one 512-chip pool, mid-trace mix flip ---------------------
 SHARED_PIPELINES = ("sd3", "flux", "cogvideox")
@@ -682,6 +682,8 @@ def scenario_runs(args) -> List[Run]:
         kw.update(seeds=seeds)
     if args.chips and args.scenario != "shared":
         cfg_kw["num_chips"] = args.chips
+    if args.fast:
+        cfg_kw.update(FAST_PATH)
     if args.modes:
         modes = tuple(m for m in args.modes.split(",") if m)
     return fn(duration=args.duration or duration, modes=modes,
@@ -711,6 +713,9 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Run]:
                       help="the scenario's CI-sized variant")
     size.add_argument("--full", action="store_true",
                       help="seeds 0-2; the shared scenario's 3600 s trace")
+    ap.add_argument("--fast", action="store_true",
+                    help="the fleet's host-path switches (array_state, "
+                         "incremental_ilp, step_changed_lanes_only)")
     ap.add_argument("--json", default=None,
                     help="write the scenario's BENCH-layout JSON here")
     args = ap.parse_args(argv)

@@ -60,9 +60,11 @@ def _classes(name):
 
 
 def _deterministic(res) -> dict:
-    """Every SimResult field but the wall-clock ``solver_ms``."""
+    """Every SimResult field but the wall-clock ``solver_ms`` and the
+    port's own ``degree_histogram`` (the reference has no such field)."""
     out = dataclasses.asdict(res)
     out.pop("solver_ms")
+    out.pop("degree_histogram", None)
     return out
 
 

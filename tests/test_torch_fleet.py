@@ -10,12 +10,12 @@ run shows the mechanism the cell is there for.  Requests are compared by
 position, never by ``rid``: ids come from a process-wide counter.
 
 Also here: the grouped ILP, the cross-lane batcher's grouping and its
-borrowed-unit ledger, the options of later slices (each must raise), byte
-equality under two hash seeds, the serving CLI's JSON against the
-reference's writers, and (marked ``slow``) the committed BENCH files
-reproduced by ``serve_fleet --hw reference``.  Unit lending and elastic
-capacity have their own files (``test_torch_lending.py``,
-``test_torch_elastic.py``).
+borrowed-unit ledger, byte equality under two hash seeds, the serving CLI's
+JSON against the reference's writers, and (marked ``slow``) the committed
+BENCH files reproduced by ``serve_fleet --hw reference``.  Unit lending,
+elastic capacity, the host path's fast paths and cross-node SP have their
+own files (``test_torch_lending.py``, ``test_torch_elastic.py``,
+``test_torch_scale.py``, ``test_torch_cross_node.py``).
 """
 import dataclasses
 import json
@@ -328,19 +328,6 @@ def test_solve_grouped_caps_a_flood_at_its_capacity_bound():
     gsol = tilp.solve_grouped(opts, budgets=[8], counts=[5000])
     assert gsol.n_slots == 8 and gsol.optimal and len(gsol.alloc[0]) == 8
     assert gsol.reward == 80.0
-
-
-# -- options of later slices -----------------------------------------------------
-
-@pytest.mark.parametrize("option", sorted(tfleet.CUT_OPTIONS))
-def test_cut_fleet_options_raise(option):
-    with pytest.raises(NotImplementedError, match=tfleet.CUT_OPTIONS[option]):
-        tfleet.FleetConfig(**{option: True})
-
-
-def test_cross_node_sp_raises():
-    with pytest.raises(NotImplementedError, match="cross-node SP"):
-        tfleet.PipelineRegistry(("sd3",), cross_node_sp=True)
 
 
 # -- determinism ------------------------------------------------------------------

@@ -446,10 +446,12 @@ def test_fleet_phase_runs_at_a_cut_size_and_prints_a_row_per_mode(tmp_path, monk
                                                                      capsys):
     import json
     monkeypatch.setattr(smoke, "out_path", lambda name: str(tmp_path / name))
-    rows = smoke.fleet_phase(chips=16, duration=120.0)
+    rows, by_cell = smoke.fleet_phase(chips=16, duration=120.0)
     printed = [json.loads(line[len("[10] "):]) for line in capsys.readouterr().out.splitlines()
                if line.startswith("[10] {")]
     assert printed == rows == json.loads((tmp_path / "fleet.json").read_text())
+    assert [(s, hw, r.mode) for (s, hw), runs in by_cell.items() for r in runs] == \
+        [(r["scenario"], r["hw"], r["mode"]) for r in rows]
     assert [(r["scenario"], r["mode"], r["hw"]) for r in rows] == [
         ("shared", "static", "h100"), ("shared", "proportional", "h100"),
         ("shared", "adaptive", "h100"), ("shared", "predictive", "h100"),
@@ -464,6 +466,72 @@ def test_fleet_phase_runs_at_a_cut_size_and_prints_a_row_per_mode(tmp_path, monk
     assert all(r["slo_pct"] >= 0.0 and r["host_s"] > 0.0 for r in rows)
     assert all(r["diffuse_runs_on_borrowed_units"] == 0 for r in rows)
     assert [r["recovery_p95_s"] is not None for r in rows] == [False] * 10 + [True] * 4
+
+
+# -- phase 11: the host path's fast paths -----------------------------------------
+
+def _small_phase11(monkeypatch, tmp_path):
+    """Phase 11 at a cut size: phase 10's cells at 16 chips and 120 s, one
+    small elastic cell for the uncut ones, and a 64-chip, 1500-request scale
+    tier whose reference fields come from the reference's own scale run
+    (``benchmarks/e2e.py``)."""
+    import contextlib
+    import io
+    from benchmarks import e2e
+    from repro_torch.launch import scale
+    monkeypatch.setattr(smoke, "out_path", lambda name: str(tmp_path / name))
+    monkeypatch.setattr(scale, "SMOKE_CHIPS", 64)
+    monkeypatch.setattr(scale, "SMOKE_REQUESTS", 1500)
+    monkeypatch.setattr(smoke, "UNCUT_SCENARIOS", (
+        ("elastic", ["--smoke", "--chips", "16", "--rate-scale", "0.125"], 16, 120.0),))
+    want = e2e._time_scale_tree(ROOT, 64, 1500, True, 1, "reference")
+    monkeypatch.setattr(smoke, "SCALE_REFERENCE", {
+        "n_requests": want["n_requests"], "n_finished": want["n_finished"],
+        "slo": want["slo"], "sched_wakeups": want["wakeups"],
+        "repartitions": want["repartitions"]})
+    with contextlib.redirect_stdout(io.StringIO()):
+        _, by_cell = smoke.fleet_phase(chips=16, duration=120.0)
+    return by_cell
+
+
+def test_fast_phase_runs_at_a_cut_size_and_checks_its_cells(tmp_path, monkeypatch, capsys):
+    """Phase 11 prints a row per mode of phase 10's cells with both host
+    times, each conserving phase 10's requests, and the uncut, scale and
+    cross-node rows; the scale tier on the reference's constants must give
+    the reference's fields, and a mode that finishes other requests
+    than its phase-10 run fails the phase."""
+    import json
+    by_cell = _small_phase11(monkeypatch, tmp_path)
+    rows = smoke.fast_phase(by_cell, chips=16, duration=120.0)
+    printed = [json.loads(line[len("[11] "):]) for line in capsys.readouterr().out.splitlines()
+               if line.startswith("[11] {")]
+    assert printed == json.loads(json.dumps(rows)) == \
+        json.loads((tmp_path / "fast.json").read_text())
+    fleet = [r for r in rows if "cell" not in r]
+    assert [(r["scenario"], r["hw"], r["mode"]) for r in fleet] == \
+        [(s, hw, r.mode) for (s, hw), runs in by_cell.items() for r in runs]
+    for r in fleet:
+        base = next(b for b in by_cell[r["scenario"], r["hw"]] if b.mode == r["mode"])
+        assert (r["n_requests"], r["n_finished"]) == (base.result.n_requests,
+                                                      base.result.n_finished)
+        assert r["fast"] and r["phase10_host_s"] == base.wall_s and r["host_s"] > 0.0
+    assert [r["cell"] for r in rows if "cell" in r] == [
+        "uncut", "uncut", "scale", "scale", "cross_node_sp", "node_sp"]
+    assert max(rows[-2]["degree_histogram"]) > max(rows[-1]["degree_histogram"])
+    # a phase-10 run that finished one request fewer: conservation fails
+    cell = next(iter(by_cell))
+    bad = [dataclasses.replace(r, result=dataclasses.replace(
+        r.result, n_finished=r.result.n_finished - 1)) for r in by_cell[cell]]
+    with pytest.raises(RuntimeError, match="finished"):
+        smoke.fast_phase({**by_cell, cell: bad}, chips=16, duration=120.0)
+
+
+def test_fast_phase_rejects_scale_fields_other_than_the_references(tmp_path, monkeypatch):
+    by_cell = _small_phase11(monkeypatch, tmp_path)
+    monkeypatch.setattr(smoke, "SCALE_REFERENCE",
+                        {**smoke.SCALE_REFERENCE, "sched_wakeups": -1})
+    with pytest.raises(RuntimeError, match="scale tier"):
+        smoke.fast_phase(by_cell, chips=16, duration=120.0)
 
 
 def _fleet_run(result, scenario="lending", mode="adaptive+lending", recovery=None):
