@@ -12,10 +12,15 @@ Phases:
      tensors at every shape the serve phases give it (and the variant
      shapes of the reference's kernel tests, and for K1 the lengths on and
      beside its 128-row and 128-key tile edges, causal queries at the end of
-     a longer kv, a window across tiles and causal D=128; for K2 float32 at
+     a longer kv, a window across tiles and causal D=128; at D=256, where its
+     key tile is 64, lengths on and beside those edges, causal and not, a
+     window across tiles, a window with a softcap, a softcap alone and
+     causal queries at the end of a longer kv; for K2 float32 at
      the served widths and batches > 1 with ragged blocks), with kernel,
      plain, library and bound times per shape (device times from CUDA-graph
-     replays), each time's share of its bound and its ratio to the library
+     replays; each K1 shape timed with its own window and softcap, and with
+     no library call where a softcap leaves no single PyTorch call computing
+     it), each time's share of its bound and its ratio to the library
      call; at the serving shapes K1's check must also reject the output of
      a kernel that lets the padded keys of its ragged last tile in;
   4. check that a two-layer cut of each diffusion pipeline (sd3, flux,
@@ -45,14 +50,23 @@ Phases:
      edges of its chunks and of its ring of staged chunks, and at a layout
      that takes its element-wise staging path; each record prints the
      kernel's plan (rows of S per thread, slice, staging path);
-  7. check that a full-width cut of rwkv6-3b (2 layers) and of zamba2-1.2b
-     (its 6-layer cycle) agrees on the card (bf16, kernels) with the same
-     weights on the CPU (float32, plain versions): the
-     last-token logits of an 1100-token prompt, the final SSM states, and the
-     logits after 4 decode steps;
+  7. check that a full-width cut of each served LLM agrees on the card (bf16,
+     kernels) with the same weights on the CPU (float32, plain versions):
+     rwkv6-3b's first 2 layers, zamba2-1.2b's 6-layer cycle, and 2 layers of
+     yi-9b, yi-34b, starcoder2-15b, gemma2-9b (one local, one global layer)
+     and deepseek-moe-16b (the dense layer, then an MoE one), the window
+     models' window cut to CUT_WINDOW so that the prompt passes it and the
+     decode steps wrap their ring: the last-token logits of an 1100-token
+     prompt, the final SSM states, the K/V caches, and the logits after 4
+     decode steps;
   8. serve eight requests (prompts of 256..2048 tokens, 32 new tokens, 4 per
-     group) on full-width, full-depth rwkv6-3b and then zamba2-1.2b through
-     ``repro_torch.launch.serve_llm.serve``, counting the kernels' launches;
+     group) on full-width, full-depth rwkv6-3b, zamba2-1.2b, yi-9b, yi-34b
+     and deepseek-moe-16b through ``repro_torch.launch.serve_llm.serve``,
+     counting the kernels' launches, one model built and freed at a time
+     (yi-34b's 64 GiB of weights leave room for nothing else);
+  8b. the same for starcoder2-15b and gemma2-9b on prompts of 4352..6144
+     tokens, past their 4096-token window, so the window binds in prefill
+     and the local rings wrap in decode;
   9. run the simulated H100 cluster through ``repro_torch.launch.serve.main``
      for each pipeline on the dynamic workload over 600 s, trident and B1-B6,
      at 128 chips and at 16 (with the rate scaled to the same load per
@@ -91,10 +105,11 @@ Phases:
      without ``--cross-node-sp``, printing the VR and SP degree histograms.
      Rows are written to ``chiprun_out/fast.json``.
 
-Every counted serve run (phases 5, 5b and 8) follows one untimed run at
+Every counted serve run (phases 5, 5b, 8 and 8b) follows one untimed run at
 each of its shapes, so its stage times hold no first-call cost. K1 is also
-held, timed and counted at zamba2's causal prefill shapes and at
-hunyuanvideo's causal encoder. The second-to-last lines are the card's name
+held, timed and counted at every LLM's causal prefill shapes (from its
+config: heads, head dim, window, softcap) and at hunyuanvideo's causal
+encoder. The second-to-last lines are the card's name
 and power limit, then one JSON object with a record per kernel; the last
 line is
 ``{"ok": true, "device": {...}}``. Any failure raises: the script then
@@ -103,6 +118,7 @@ exits non-zero and prints no such line.
 from __future__ import annotations
 
 import ctypes
+import gc
 import json
 import math
 import os
@@ -177,11 +193,19 @@ K3_REL = {"float32": 1e-5, "bfloat16": 2.0 ** -7}
 # own bf16 run of the same cut reads 0.9-1.9%, and a scan that drops rwkv6's
 # bonus or reads one token late in zamba2 moves a reading to 8-12%
 # (tests/test_torch_smoke_checks.py prints both and holds the limits between)
-LLM_CUT_TOL = {"logits": 0.04, "ssm_state": 0.04, "decode_logits": 0.04}
+# (the K/V caches: their bf16 projections' rounding, 0.4-1.6% on the card)
+LLM_CUT_TOL = {"logits": 0.04, "ssm_state": 0.04, "kv_cache": 0.04, "decode_logits": 0.04}
+# the SSM LLMs (phase 7's limits on them are held against scan faults in
+# tests/test_torch_smoke_checks.py), then the attention LLMs; phase 8 serves
+# all but LONG_ARCHS, phase 8b those, on prompts past their window
 LLM_ARCHS = ("rwkv6-3b", "zamba2-1.2b")
+ATTN_ARCHS = ("yi-9b", "yi-34b", "deepseek-moe-16b", "starcoder2-15b", "gemma2-9b")
+LONG_ARCHS = ("starcoder2-15b", "gemma2-9b")
 LLM_REQUESTS, LLM_LENGTHS, LLM_MAX_NEW = 8, (256, 2048), 32
+LONG_LENGTHS = (4352, 6144)
 LLM_BATCH = 4                 # serve_llm.MAX_BATCH: requests per ServeEngine group
 CUT_PROMPT, CUT_BATCH, CUT_DECODE = 1100, 2, 4
+CUT_WINDOW = 512              # phase 7's window: CUT_PROMPT passes it, the decode wraps
 
 
 def smi() -> str:
@@ -315,11 +339,37 @@ def ring(make, nbytes: int) -> list:
     return [make() for _ in range(max(1, math.ceil(2 * L2_BYTES / nbytes)))]
 
 
-def plain_by_heads(ref, q, k, v, mask=None):
+def plain_by_heads(ref, q, k, v, mask=None, softcap=0.0):
     """The plain attention, eight heads at a time: its f32 scores are large."""
     import torch
-    return torch.cat([ref.attention_ref(q[:, :, i:i + 8], k[:, :, i:i + 8], v[:, :, i:i + 8], mask)
+    return torch.cat([ref.attention_ref(q[:, :, i:i + 8], k[:, :, i:i + 8], v[:, :, i:i + 8], mask,
+                                        softcap)
                       for i in range(0, q.shape[2], 8)], dim=2)
+
+
+def k1_calls(F, fa, ref, causal: bool, window: int, softcap: float, mask) -> tuple:
+    """(kernel, plain, library) calls of one K1 shape on (B, L, H, D) tensors,
+    each computing the shape's own function: its causal mask, window and
+    softcap (``mask``: ``ops.attention_mask`` of the shape, or None). The
+    library call is ``scaled_dot_product_attention``: causal where the mask is
+    plain causal with Lq = Lkv, the boolean mask where a window cuts it; None
+    where a softcap leaves no single PyTorch call computing the function."""
+    def kernel(q, k, v):
+        return fa.flash_attention(q, k, v, causal=causal, window=window, softcap=softcap)
+
+    def plain(q, k, v):
+        return plain_by_heads(ref, q, k, v, mask, softcap)
+
+    if softcap > 0.0:
+        return kernel, plain, None
+    square = mask is None or mask.shape[0] == mask.shape[1]
+    attn_mask = None if (window == 0 and square) else mask
+
+    def library(q, k, v):
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), attn_mask=attn_mask,
+            is_causal=causal and attn_mask is None).transpose(1, 2)
+    return kernel, plain, library
 
 
 def check_flash_attention(torch, ops, ref, fa, gen, records, main):
@@ -344,6 +394,14 @@ def check_flash_attention(torch, ops, ref, fa, gen, records, main):
         extra += [(1, n, n, 4, 64, False, 0, 0.0), (1, n, n, 4, 128, True, 0, 0.0)]
     extra += [(1, 100, 300, 4, 64, True, 0, 0.0), (1, 1, 1810, 4, 128, True, 0, 0.0),
               (2, 300, 300, 2, 64, True, 130, 0.0), (1, 1810, 1810, 8, 128, True, 0, 0.0)]
+    # D = 256 (gemma2), on 64-key tiles: lengths on and beside the tile edges,
+    # causal and not; a window across tiles; gemma2's window with its softcap;
+    # a softcap alone; causal queries at the end of a longer kv
+    for n in (1, 63, 64, 65, 127, 129, 257):
+        extra += [(1, n, n, 4, 256, causal, 0, 0.0) for causal in (True, False)]
+    extra += [(2, 300, 300, 2, 256, True, 130, 0.0), (2, 300, 300, 2, 256, True, 48, 50.0),
+              (1, 200, 200, 4, 256, True, 0, 30.0), (1, 100, 300, 4, 256, True, 0, 0.0),
+              (1, 100, 300, 2, 256, True, 48, 50.0)]
     out = []
     for shape in [m[1] for m in main] + extra:
         b, lq, lkv, h, d, causal, window, cap = shape
@@ -357,10 +415,7 @@ def check_flash_attention(torch, ops, ref, fa, gen, records, main):
         torch.cuda.synchronize()
         if not torch.isfinite(o).all():
             raise RuntimeError(f"flash_attention: non-finite output at {(b, lq, lkv, h, d)}")
-        if cap == 0.0:                  # compare per head group: the f32 scores are large
-            want = plain_by_heads(ref, q, k, v, mask)
-        else:
-            want = ref.attention_ref(q, k, v, mask, cap)
+        want = plain_by_heads(ref, q, k, v, mask, cap)   # per head group: large f32 scores
         err, rel, ok = k1_agree(o, want)
         rec = {"shape": [b, lq, lkv, h, d], "causal": causal, "window": window,
                "softcap": cap, "max_abs_err": err, "rms_rel_err": rel}
@@ -382,20 +437,10 @@ def check_flash_attention(torch, ops, ref, fa, gen, records, main):
             else "bytes"
         if shape in timed:
             sets = ring(make, nbytes)
-
-            def kernel(q, k, v):
-                return fa.flash_attention(q, k, v, causal=causal)
-
-            def plain(q, k, v):
-                return plain_by_heads(ref, q, k, v, mask)
-
-            def library(q, k, v):
-                return F.scaled_dot_product_attention(q, k, v, is_causal=causal)
-
+            kernel, plain, library = k1_calls(F, fa, ref, causal, window, cap, mask)
             rec["ms"] = device_ms(kernel, sets, 20)
             rec["plain_ms"] = device_ms(plain, sets[:1], 3)
-            rec["library_ms"] = device_ms(
-                library, [tuple(t.transpose(1, 2) for t in s) for s in sets], 20)
+            rec["library_ms"] = device_ms(library, sets, 20) if library else None
             rec["main_path"] = timed[shape]
             shares(rec)
         print("K1 flash_attention " + json.dumps(rec), flush=True)
@@ -471,12 +516,24 @@ def k2_build_report(_build) -> str:
     return json.dumps(sorted(out, key=lambda r: (r["dtype"], r["vectors"])))
 
 
+def llm_k1_shapes(cfg, lengths) -> list:
+    """K1's (B, Lq, Lkv, H, D, causal, window, softcap) shapes in one LLM's
+    prefill: per group of LLM_BATCH prompts padded to ``lengths``, one per
+    kind of attention layer the model has (a local layer's with its window),
+    its KV heads repeated to the query heads."""
+    kinds = dict.fromkeys(m for m, _ in cfg.layer_kinds() if m in ("attn", "attn_local"))
+    return [(LLM_BATCH, l, l, cfg.num_heads, cfg.resolved_head_dim, True,
+             cfg.window_size if m == "attn_local" else 0, cfg.attn_softcap)
+            for l in lengths for m in kinds]
+
+
 def serving_shapes(C, llm_groups) -> tuple:
     """(path, shape) of every call the serve phases make: K1's (B, Lq, Lkv, H,
     D, causal, window, softcap) and K2's (B, L, D). Each request's DiT runs
     over its latent tokens plus the prompt's; hunyuanvideo's encoder runs K1
     causally over the prompt, its KV heads repeated to the 32 query heads;
-    zamba2's prefill runs it over each group of LLM_BATCH prompts."""
+    each LLM's prefill runs it over each group of LLM_BATCH prompts
+    (``llm_groups``: the padded length of each group, by arch)."""
     from repro_torch.launch import quickstart
     k1, k2 = [], []
     for name in PIPELINES:
@@ -490,8 +547,8 @@ def serving_shapes(C, llm_groups) -> tuple:
         if "attn:dense" in enc.layer_pattern:
             k1.append((name, (1, COND_LEN, COND_LEN, enc.num_heads, enc.resolved_head_dim,
                               True, 0, 0.0)))
-    k1 += [("zamba2-1.2b", (LLM_BATCH, l, l, 32, 64, True, 0, 0.0))
-           for l in llm_groups["zamba2-1.2b"]]
+    for arch, lengths in llm_groups.items():
+        k1 += [(arch, shape) for shape in llm_k1_shapes(C.get(arch), lengths)]
     return k1, k2
 
 
@@ -600,8 +657,10 @@ def serve_pipeline_phase(torch, C, pl, ops, quickstart, Request, name: str, tag:
 
 
 def llm_requests(serve_llm, cfg):
-    """Phase 8's requests: chat and RAG prompts of 256..2048 tokens, drawn from a seed."""
-    return serve_llm.requests_from_seed(cfg.vocab_size, LLM_REQUESTS, LLM_LENGTHS, LLM_MAX_NEW)
+    """Phase 8's requests: chat and RAG prompts of 256..2048 tokens, drawn from
+    a seed; phase 8b's (LONG_ARCHS) long-document prompts of 4352..6144."""
+    lengths = LONG_LENGTHS if cfg.name in LONG_ARCHS else LLM_LENGTHS
+    return serve_llm.requests_from_seed(cfg.vocab_size, LLM_REQUESTS, lengths, LLM_MAX_NEW)
 
 
 def group_lengths(reqs) -> list:
@@ -739,10 +798,16 @@ def check_ssm_scan(torch, ref, ss, gen, records, serving_shapes):
 
 
 def llm_cut_config(C, arch: str):
-    """Phase 7's cut at full width: rwkv6-3b's first 2 layers; zamba2-1.2b's
-    6-layer cycle (5 Mamba2 layers, then attention), so K1 and K3 both run."""
+    """Phase 7's cut at full width: zamba2-1.2b's 6-layer cycle (5 Mamba2
+    layers, then attention), so K1 and K3 both run; every other LLM's first 2
+    layers (gemma2's local and global one, deepseek-moe's dense and first MoE
+    one), a window cut to CUT_WINDOW."""
     import dataclasses
-    return dataclasses.replace(C.get(arch), num_layers=2 if arch == "rwkv6-3b" else 6)
+    cfg = C.get(arch)
+    cut = dataclasses.replace(cfg, num_layers=6 if arch == "zamba2-1.2b" else 2)
+    if any(m == "attn_local" for m, _ in cfg.layer_kinds()):
+        cut = dataclasses.replace(cut, window_size=CUT_WINDOW)
+    return cut
 
 
 def llm_cut_inputs(torch, cfg):
@@ -755,15 +820,20 @@ def llm_cut_inputs(torch, cfg):
 
 
 def llm_cut_readout(torch, model, prompt, steps) -> dict:
-    """One model's last-token logits, every layer's SSM state after the
-    prompt, and logits after the decode steps, as float32 on the CPU."""
+    """One model's last-token logits, every layer's SSM state and K/V ring
+    cache after the prompt (where it has such layers), and logits after the
+    decode steps, as float32 on the CPU."""
     dev = model.embed.device
     logits, caches, offset = model.prefill(prompt.to(dev), CUT_PROMPT + CUT_DECODE)
-    states = torch.cat([c["ssm"].flatten() for c in caches if "ssm" in c])
+    out = {"logits": logits.float().cpu()}
+    for key, parts in (("ssm_state", ("ssm",)), ("kv_cache", ("k", "v"))):
+        held = [c[p].flatten() for c in caches for p in parts if p in c]
+        if held:
+            out[key] = torch.cat(held).float().cpu()
     for i, tok in enumerate(steps):
         dec, caches = model.decode_step(tok.to(dev), caches, offset + i)
-    return {"logits": logits.float().cpu(), "ssm_state": states.float().cpu(),
-            "decode_logits": dec.float().cpu()}
+    out["decode_logits"] = dec.float().cpu()
+    return out
 
 
 def rms_rel(got, want) -> float:
@@ -784,7 +854,8 @@ def check_llm_cut(torch, C, tf, arch: str) -> dict:
     want = llm_cut_readout(torch, cpu, prompt, steps)
     got = llm_cut_readout(torch, gpu, prompt, steps)
     out = {k: rms_rel(got[k], want[k]) for k in want}
-    for k, tol in LLM_CUT_TOL.items():
+    for k in out:
+        tol = LLM_CUT_TOL[k]
         if not math.isfinite(out[k]) or out[k] > tol:
             raise RuntimeError(f"{arch} cut, card vs CPU: {k} = {out[k]:.3g} above {tol}")
     del gpu, cpu
@@ -792,10 +863,22 @@ def check_llm_cut(torch, C, tf, arch: str) -> dict:
     return out
 
 
-def serve_llm_phase(torch, C, tf, ops, serve_llm, arch: str) -> dict:
-    """Serve phase 8's requests on the full model; returns the launches."""
+def expected_launches(cfg, groups: int) -> dict:
+    """Each kernel's launches when ``groups`` prefill groups run through the
+    model: K1 once per attention layer (full or local), K3 once per SSM
+    layer; decode runs neither."""
+    kinds = [m for m, _ in cfg.layer_kinds()]
+    return {"flash_attention": (kinds.count("attn") + kinds.count("attn_local")) * groups,
+            "adaln_rmsnorm": 0,
+            "ssm_scan": (kinds.count("mamba2") + kinds.count("rwkv6")) * groups}
+
+
+def serve_llm_phase(torch, C, tf, ops, serve_llm, arch: str, tag: str = "8") -> dict:
+    """Serve phase 8's (or 8b's) requests on the full model, built on the card
+    from a seed and freed after; returns the launches."""
     cfg = C.get(arch)
     t0 = time.perf_counter()
+    resident = torch.cuda.memory_allocated() / 2 ** 30
     model = tf.build(cfg, "cuda", seed=0)
     reqs = llm_requests(serve_llm, cfg)
     serve_llm.warm(model, reqs)         # each group's shapes once, untimed
@@ -808,9 +891,9 @@ def serve_llm_phase(torch, C, tf, ops, serve_llm, arch: str) -> dict:
         return logits
     model.lm_logits = checked
     torch.cuda.synchronize()
-    print(f"[8] {arch} built on the card ({sum(p.numel() for p in model.parameters())} "
-          f"params) and warmed at every group's shape in {time.perf_counter() - t0:.1f} s",
-          flush=True)
+    print(f"[{tag}] {arch} built on the card ({sum(p.numel() for p in model.parameters())} "
+          f"params, {resident:.2f} GiB resident before) and warmed at every group's shape in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
     t0 = time.perf_counter()
@@ -818,10 +901,8 @@ def serve_llm_phase(torch, C, tf, ops, serve_llm, arch: str) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
-    kinds = [m for m, _ in cfg.layer_kinds()]
     groups = len(group_lengths(reqs))
-    want = {"flash_attention": kinds.count("attn") * groups, "adaln_rmsnorm": 0,
-            "ssm_scan": (kinds.count("mamba2") + kinds.count("rwkv6")) * groups}
+    want = expected_launches(cfg, groups)
     if not all(bool(f) for f in finite) or len(finite) != groups * (1 + LLM_MAX_NEW):
         raise RuntimeError(f"{arch}: non-finite logits while serving")
     for r in recs:
@@ -831,16 +912,18 @@ def serve_llm_phase(torch, C, tf, ops, serve_llm, arch: str) -> dict:
                                f"in [0, {cfg.vocab_size})")
     for i in range(0, len(recs), LLM_BATCH):
         r = recs[i]
-        print(f"[8] {arch} group of {r['group_size']}, prompts "
+        print(f"[{tag}] {arch} group of {r['group_size']}, prompts "
               f"{[x['prompt_len'] for x in recs[i:i + LLM_BATCH]]}: prefill "
               f"{r['prefill_ms']:.1f} ms, decode {r['decode_ms_per_token']:.2f} ms/token",
               flush=True)
-    print(f"[8] {arch} served {len(recs)} requests in {wall:.2f} s, peak memory "
+    print(f"[{tag}] {arch} served {len(recs)} requests in {wall:.2f} s, peak memory "
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB, launches {launches}",
           flush=True)
     if launches != want:
         raise RuntimeError(f"{arch}: kernel launches {launches}, expected {want}")
-    del model
+    # the wrapped lm_logits holds the model in a cycle: free it before the next
+    del model.lm_logits, model
+    gc.collect()
     torch.cuda.empty_cache()
     return launches
 
@@ -1262,6 +1345,54 @@ def fast_phase(phase10: dict, chips=None, duration=None) -> list:
     return rows
 
 
+KERNELS = (("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
+            "src/repro/kernels/flash_attention.py:85"),
+           ("adaln_rmsnorm", "src/repro_torch/csrc/adaln_rmsnorm.cu",
+            "src/repro/kernels/adaln_rmsnorm.py:33"),
+           ("ssm_scan", "src/repro_torch/csrc/ssm_scan.cu",
+            "src/repro/kernels/ssm_scan.py:80"))
+
+
+def kernel_records(records: dict, by_path: dict) -> list:
+    """The kernels line: per kernel, its launches on the main path (by path),
+    its largest error, and its ms, plain ms, bound ms and library ms summed
+    over one call at each shape the serve phases give it. The library time
+    sums the shapes that have a library call and names those that have none
+    (``library_missing``); null where no shape has one."""
+    kernels = []
+    for name, source, replaces in KERNELS:
+        rows = [r for r in records[name] if r.get("main_path")]
+        lib = [r["library_ms"] for r in rows if r["library_ms"] is not None]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": sum(counts[name] for counts in by_path.values()),
+            "launches_by_path": {path: counts[name] for path, counts in by_path.items()},
+            "max_abs_err": max(r["max_abs_err"] for r in records[name]),
+            # one call at each shape the serve phases give the kernel
+            "shapes": [r["shape"] for r in rows],
+            "ms": sum(r["ms"] for r in rows),
+            "plain_ms": sum(r["plain_ms"] for r in rows),
+            "bound_ms": sum(r["bound_ms"] for r in rows),
+            "bound_by": rows[-1]["bound_by"],
+            "library_ms": sum(lib) if lib else None,
+            "library_missing": [r["shape"] for r in rows if r["library_ms"] is None] if lib
+                               else None,
+            "ms_by_path": ms_by(rows, lambda r: r["main_path"]),
+            # K1's record shape is (B, Lq, Lkv, H, D)
+            "ms_by_head_dim": (ms_by(rows, lambda r: str(r["shape"][4]))
+                               if name == "flash_attention" else None),
+        })
+    return kernels
+
+
+def ms_by(rows, key) -> dict:
+    """The summed ms of timed records grouped by ``key(record)``."""
+    out = {}
+    for r in rows:
+        out[key(r)] = out.get(key(r), 0.0) + r["ms"]
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1292,7 +1423,7 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     records = {}
     llm_groups = {arch: group_lengths(llm_requests(serve_llm, C.get(arch)))
-                  for arch in LLM_ARCHS}
+                  for arch in LLM_ARCHS + ATTN_ARCHS}
     k1_shapes, k2_shapes = serving_shapes(C, llm_groups)
     check_flash_attention(torch, ops, ref, fa, gen, records, k1_shapes)
     check_adaln_rmsnorm(torch, ref, ar, gen, records, k2_shapes)
@@ -1318,14 +1449,15 @@ def main() -> int:
                     for arch in LLM_ARCHS for l in llm_groups[arch]])
     print("[6] ssm_scan agrees with its plain version", flush=True)
 
-    for arch in LLM_ARCHS:
+    for arch in LLM_ARCHS + ATTN_ARCHS:
         t0 = time.perf_counter()
         cut = check_llm_cut(torch, C, tf, arch)
         print(f"[7] {arch} cut, card vs CPU, rms err / rms: {json.dumps(cut)} "
               f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
-    for arch in LLM_ARCHS:
-        by_path[arch] = serve_llm_phase(torch, C, tf, ops, serve_llm, arch)
+    for arch in LLM_ARCHS + ATTN_ARCHS:
+        by_path[arch] = serve_llm_phase(torch, C, tf, ops, serve_llm, arch,
+                                        "8b" if arch in LONG_ARCHS else "8")
 
     t0 = time.perf_counter()
     cluster_phase()
@@ -1334,29 +1466,7 @@ def main() -> int:
     _, phase10 = fleet_phase()
     fast_phase(phase10)
 
-    kernels = []
-    for name, source, replaces in (
-            ("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
-             "src/repro/kernels/flash_attention.py:85"),
-            ("adaln_rmsnorm", "src/repro_torch/csrc/adaln_rmsnorm.cu",
-             "src/repro/kernels/adaln_rmsnorm.py:33"),
-            ("ssm_scan", "src/repro_torch/csrc/ssm_scan.cu",
-             "src/repro/kernels/ssm_scan.py:80")):
-        rows = [r for r in records[name] if r.get("main_path")]
-        lib = [r["library_ms"] for r in rows]
-        kernels.append({
-            "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": sum(counts[name] for counts in by_path.values()),
-            "launches_by_path": {path: counts[name] for path, counts in by_path.items()},
-            "max_abs_err": max(r["max_abs_err"] for r in records[name]),
-            # one call at each shape the serve phases give the kernel
-            "shapes": [r["shape"] for r in rows],
-            "ms": sum(r["ms"] for r in rows),
-            "plain_ms": sum(r["plain_ms"] for r in rows),
-            "bound_ms": sum(r["bound_ms"] for r in rows),
-            "bound_by": rows[-1]["bound_by"],
-            "library_ms": None if None in lib else sum(lib),
-        })
+    kernels = kernel_records(records, by_path)
     print(f"total {time.perf_counter() - t_all:.1f} s", flush=True)
     print(smi())
     print(json.dumps({"kernels": kernels}))

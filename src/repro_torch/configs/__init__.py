@@ -3,20 +3,27 @@
 ``get(id)`` returns the full published config; ``get_smoke`` a reduced
 same-family variant that runs on a CPU in seconds. Counterpart of
 ``repro/configs/__init__.py``; ported so far: the four diffusion pipelines
-(``sd3``, ``flux``, ``cogvideox``, ``hunyuanvideo``), ``zamba2-1.2b`` and
-``rwkv6-3b``.
+(``sd3``, ``flux``, ``cogvideox``, ``hunyuanvideo``) and seven LLMs:
+``zamba2-1.2b``, ``rwkv6-3b``, ``yi-9b``, ``yi-34b``, ``starcoder2-15b``,
+``gemma2-9b`` and ``deepseek-moe-16b``.
 """
 from __future__ import annotations
 
 import importlib
 
-ARCH_IDS = ("zamba2-1.2b", "rwkv6-3b")
+ARCH_IDS = ("zamba2-1.2b", "rwkv6-3b", "yi-9b", "yi-34b", "starcoder2-15b", "gemma2-9b",
+            "deepseek-moe-16b")
 
 PIPELINE_IDS = ("sd3", "flux", "cogvideox", "hunyuanvideo")
 
 _MODULES = {
     "zamba2-1.2b": "zamba2_1p2b",
     "rwkv6-3b": "rwkv6_3b",
+    "yi-9b": "yi_9b",
+    "yi-34b": "yi_34b",
+    "starcoder2-15b": "starcoder2_15b",
+    "gemma2-9b": "gemma2_9b",
+    "deepseek-moe-16b": "deepseek_moe_16b",
     "sd3": "sd3",
     "flux": "flux",
     "cogvideox": "cogvideox",

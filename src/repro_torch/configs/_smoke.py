@@ -13,8 +13,8 @@ from repro_torch.models.common import ModelConfig
 
 
 def make_smoke(cfg: ModelConfig, **overrides) -> ModelConfig:
-    """d_model 128, 4 heads of 32, f32; 2 layers, or one cycle of a longer
-    pattern (up to 8); same layer family/pattern."""
+    """d_model 128, 4 heads of 32, <= 4 experts, f32; 2 layers, or one cycle
+    of a longer pattern (up to 8); same layer family/pattern."""
     heads = min(cfg.num_heads, 4)
     kv = max(1, min(cfg.num_kv_heads, heads))
     while heads % kv:
@@ -28,6 +28,9 @@ def make_smoke(cfg: ModelConfig, **overrides) -> ModelConfig:
         vocab_size=min(cfg.vocab_size, 512),
         window_size=min(cfg.window_size, 16),
         chunk_size=min(cfg.chunk_size, 16),
+        num_experts=min(cfg.num_experts, 4),
+        experts_per_token=min(cfg.experts_per_token, 2),
+        moe_d_ff=min(cfg.moe_d_ff, 64) if cfg.moe_d_ff else 0,
         ssm_state_dim=min(cfg.ssm_state_dim, 16),
         ssm_heads=4 if cfg.resolved_ssm_heads else 0,
         dtype=torch.float32,

@@ -19,13 +19,23 @@
 //     One warpgroup's wgmma stream alone fills about 60% of the tensor cores, so
 //     the consumers' products and softmaxes interleave. NC is 2, or 3 at D = 64
 //     for non-causal calls whose grid of 192-row blocks fills the card's waves;
-//   * Q is copied once; K and V tiles of 128 keys go through a ring of STAGES
+//   * Q is copied once; K and V tiles of BN keys go through a ring of STAGES
 //     shared-memory stages, each with "full" mbarriers for K and for V (TMA bytes
 //     arrived) and an "empty" one (every consumer done with the stage), so the
 //     next tiles load while this one is multiplied. The TMA maps are 4-D (D, H,
 //     L, B) over the caller's strides, 128-byte swizzled, one 64-column box per
 //     128 bytes of a row; keys and queries past the end are zero-filled;
-//   * S = Q K^T is wgmma m64n128k16 with both operands in shared memory (K-major);
+//   * BN is 128 keys at D = 64 and 128. At D = 256 (gemma2) a 128-key K or V tile
+//     is 64 KB, so two stages would not fit the block's 227 KB: there BN is 64
+//     and the ring has two stages. Two stages leave no slack if a stage waits
+//     for both its products, so at D = 256 K and V have "empty" mbarriers of
+//     their own and a K tile is released as soon as its Q K^T is done: the next
+//     K tile then loads during the step that multiplies this one's P V. The
+//     output accumulator (64 x 256 f32) takes 128 of a consumer thread's 240
+//     registers, S (64 x 64) 32 and P 16 more: two consumers fit without
+//     spills (one alone was 1.2x slower at gemma2's prefill shapes:
+//     launch/flash_attention_ab.py on an NVIDIA H100 80GB HBM3 at 700 W);
+//   * S = Q K^T is wgmma m64nBNk16 with both operands in shared memory (K-major);
 //     P V is wgmma with P taken from registers: the f32 fragment of S, rounded to
 //     bf16 pairs, is already wgmma's A-operand layout; V is the B operand read
 //     MN-major (the descriptor's transpose bit). Each step starts the next tile's
@@ -54,7 +64,6 @@ typedef __nv_bfloat16 bf16;
 namespace {
 
 constexpr int WG_ROWS = 64;            // query rows per consumer warpgroup (wgmma M)
-constexpr int BN = 128;                // keys per KV tile
 constexpr int BOX_BYTES = 128;         // one swizzled row of a box: 64 bf16 columns
 constexpr int TURN = 4;                // named barriers TURN.. pass the product turn
                                        // (1..3 sync a consumer's epilogue)
@@ -64,15 +73,21 @@ constexpr float LOG2E = 1.4426950408889634f;
 // NC consumer warpgroups of 64 query rows, after one producer warpgroup.
 template <int D, int NC>
 struct Smem {
-  static constexpr int STAGES = D == 64 ? 4 : 3;           // as many as fit at D = 128
+  static constexpr int BN = D == 256 ? 64 : 128;             // keys per KV tile
+  static constexpr int STAGES = D == 64 ? 4 : D == 128 ? 3 : 2;   // as many as fit
+  // K and V released apart (K once its Q K^T is done): where two stages must do
+  static constexpr bool SPLIT = STAGES == 2;
   static constexpr int BOXES = D / 64;                       // 64-column boxes per row
   static constexpr int Q_WG = WG_ROWS * D * 2;                // one consumer's Q tile
   static constexpr int KV = BN * D * 2;                       // one K or one V tile
   static constexpr int q = 0;
   static constexpr int k = q + NC * Q_WG;
   static constexpr int v = k + STAGES * KV;
-  static constexpr int bars = v + STAGES * KV;       // full_k, full_v, empty [STAGES]; q
-  static constexpr int bytes = bars + 8 * (3 * STAGES + 1) + 1024;   // + alignment slack
+  // full_k, full_v, empty_k [STAGES]; empty_v [STAGES] if SPLIT (else empty_k
+  // serves both); q
+  static constexpr int bars = v + STAGES * KV;
+  static constexpr int EMPTIES = SPLIT ? 2 : 1;
+  static constexpr int bytes = bars + 8 * ((2 + EMPTIES) * STAGES + 1) + 1024;  // + slack
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -163,6 +178,19 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+// d (64 x 64, f32) (+)= A (64 x 16, shared) * B (16 x 64, shared, K-major)
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t da, uint64_t db,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : FA_D8(0), FA_D8(8), FA_D8(16), FA_D8(24)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 // d (64 x 64, f32) += A (64 x 16, registers) * B (16 x 64, shared, MN-major)
 __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_t* a,
                                                    uint64_t db) {
@@ -190,6 +218,28 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32
       : FA_D8(0), FA_D8(8), FA_D8(16), FA_D8(24), FA_D8(32), FA_D8(40), FA_D8(48), FA_D8(56)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
+
+// d (64 x 256, f32) += A (64 x 16, registers) * B (16 x 256, shared, MN-major)
+__device__ __forceinline__ void wgmma_m64n256k16_rs(float (&d)[128], const uint32_t* a,
+                                                    uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %133, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : FA_D8(0), FA_D8(8), FA_D8(16), FA_D8(24), FA_D8(32), FA_D8(40), FA_D8(48), FA_D8(56),
+        FA_D8(64), FA_D8(72), FA_D8(80), FA_D8(88), FA_D8(96), FA_D8(104), FA_D8(112),
+        FA_D8(120)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
 #undef FA_D8
 
 template <int D>
@@ -201,6 +251,18 @@ __device__ __forceinline__ void wgmma_pv<64>(float (&acc)[32], const uint32_t* a
 template <>
 __device__ __forceinline__ void wgmma_pv<128>(float (&acc)[64], const uint32_t* a, uint64_t db) {
   wgmma_m64n128k16_rs(acc, a, db);
+}
+template <>
+__device__ __forceinline__ void wgmma_pv<256>(float (&acc)[128], const uint32_t* a, uint64_t db) {
+  wgmma_m64n256k16_rs(acc, a, db);
+}
+
+// S (+)= Q K^T over one 16-column slice, for a tile of BN keys.
+__device__ __forceinline__ void wgmma_qk(float (&s)[64], uint64_t da, uint64_t db, int acc) {
+  wgmma_m64n128k16_ss(s, da, db, acc);
+}
+__device__ __forceinline__ void wgmma_qk(float (&s)[32], uint64_t da, uint64_t db, int acc) {
+  wgmma_m64n64k16_ss(s, da, db, acc);
 }
 
 __device__ __forceinline__ float fast_exp2(float x) {
@@ -220,16 +282,16 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// S = Q K^T for one consumer's 64 rows and one 128-key tile, started and
+// S = Q K^T for one consumer's 64 rows and one tile of BN keys, started and
 // committed as one wgmma group. Both tiles are BOXES boxes of 64 columns; a
 // 16-column slice is 32 bytes into a box's row.
-template <int D>
-__device__ __forceinline__ void qk_async(float (&s)[64], uint32_t q_tile, uint32_t k_tile) {
+template <int D, int BN>
+__device__ __forceinline__ void qk_async(float (&s)[BN / 2], uint32_t q_tile, uint32_t k_tile) {
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     const uint32_t col = (kk % 4) * 32;
-    wgmma_m64n128k16_ss(s, desc_sw128(q_tile + (kk / 4) * WG_ROWS * BOX_BYTES + col, 0),
-                        desc_sw128(k_tile + (kk / 4) * BN * BOX_BYTES + col, 0), kk > 0);
+    wgmma_qk(s, desc_sw128(q_tile + (kk / 4) * WG_ROWS * BOX_BYTES + col, 0),
+             desc_sw128(k_tile + (kk / 4) * BN * BOX_BYTES + col, 0), kk > 0);
   }
   wgmma_commit();
 }
@@ -237,8 +299,8 @@ __device__ __forceinline__ void qk_async(float (&s)[64], uint32_t q_tile, uint32
 // acc += P V as one wgmma group: P's 16-key slice kk is the accumulator
 // fragment's values 8kk..8kk+7, packed in pairs; V's is 16 rows (2048 bytes)
 // down the tile.
-template <int D>
-__device__ __forceinline__ void pv_async(float (&acc)[D / 2], const uint32_t (&p)[32],
+template <int D, int BN>
+__device__ __forceinline__ void pv_async(float (&acc)[D / 2], const uint32_t (&p)[BN / 4],
                                          uint32_t v_tile) {
 #pragma unroll
   for (int kk = 0; kk < BN / 16; ++kk)
@@ -256,25 +318,33 @@ struct Rows {
   float softcap, scale;
 };
 
-// Max and sum over the 32 values a thread holds of row r (values 4q + 2r and
-// 4q + 2r + 1), as trees: few warps share an SM sub-partition, so the latency
-// of one long chain would not be hidden.
-__device__ __forceinline__ float row_max(const float (&s)[64], int r) {
-  float t[16];
+// Max and sum over the N / 2 values a thread holds of row r (values 4q + 2r
+// and 4q + 2r + 1), as trees: few warps share an SM sub-partition, so the
+// latency of one long chain would not be hidden.
+// (Every index is a constant once unrolled: t must stay in registers.)
+template <int N>
+__device__ __forceinline__ float row_max(const float (&s)[N], int r) {
+  static_assert(N == 32 || N == 64, "16 or 32 values a row");
+  float t[N / 4];
 #pragma unroll
-  for (int q = 0; q < 16; ++q) t[q] = fmaxf(s[4 * q + 2 * r], s[4 * q + 2 * r + 1]);
+  for (int q = 0; q < N / 4; ++q) t[q] = fmaxf(s[4 * q + 2 * r], s[4 * q + 2 * r + 1]);
+  if constexpr (N == 64) {
 #pragma unroll
-  for (int q = 0; q < 8; ++q) t[q] = fmaxf(t[q], t[q + 8]);
+    for (int q = 0; q < 8; ++q) t[q] = fmaxf(t[q], t[q + 8]);
+  }
 #pragma unroll
   for (int q = 0; q < 4; ++q) t[q] = fmaxf(t[q], t[q + 4]);
   return fmaxf(fmaxf(t[0], t[2]), fmaxf(t[1], t[3]));
 }
-__device__ __forceinline__ float row_sum(const float (&s)[64], int r) {
-  float t[16];
+template <int N>
+__device__ __forceinline__ float row_sum(const float (&s)[N], int r) {
+  float t[N / 4];
 #pragma unroll
-  for (int q = 0; q < 16; ++q) t[q] = s[4 * q + 2 * r] + s[4 * q + 2 * r + 1];
+  for (int q = 0; q < N / 4; ++q) t[q] = s[4 * q + 2 * r] + s[4 * q + 2 * r + 1];
+  if constexpr (N == 64) {
 #pragma unroll
-  for (int q = 0; q < 8; ++q) t[q] += t[q + 8];
+    for (int q = 0; q < 8; ++q) t[q] += t[q + 8];
+  }
 #pragma unroll
   for (int q = 0; q < 4; ++q) t[q] += t[q + 4];
   return (t[0] + t[2]) + (t[1] + t[3]);
@@ -289,7 +359,8 @@ __device__ __forceinline__ float quad_max(float x) {
 // max m (log2 units); l (this thread's share of each row's sum) and alpha (the
 // factor acc must be scaled by) follow. `masked`: the tile touches the
 // diagonal, the window's edge or Lkv, or the scores are softcapped.
-__device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m)[2], float (&l)[2],
+template <int N>
+__device__ __forceinline__ void softmax_tile(float (&s)[N], float (&m)[2], float (&l)[2],
                                              float (&alpha)[2], int k0, bool masked,
                                              const Rows& rw, int lane) {
   const float sl2 = rw.scale * LOG2E;
@@ -299,10 +370,10 @@ __device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m)[2], floa
       // cap * tanh(x / cap) = cap - 2 cap / (exp(2 x / cap) + 1), in log2 units
       const float two_x = 2.f * rw.scale / rw.softcap * LOG2E, cap = rw.softcap * LOG2E;
 #pragma unroll
-      for (int j = 0; j < 64; ++j) s[j] = cap - 2.f * cap * fast_rcp(fast_exp2(s[j] * two_x) + 1.f);
+      for (int j = 0; j < N; ++j) s[j] = cap - 2.f * cap * fast_rcp(fast_exp2(s[j] * two_x) + 1.f);
     } else {
 #pragma unroll
-      for (int j = 0; j < 64; ++j) s[j] *= sl2;
+      for (int j = 0; j < N; ++j) s[j] *= sl2;
     }
     // value j sits at key kb + 8 * (j / 4) + j % 2 of row qpos + 8 * ((j / 2) % 2)
     const int kb = k0 + 2 * (lane % 4);
@@ -313,7 +384,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m)[2], floa
       const int hi = rw.causal ? qp : INT_MAX;
       const int lo = rw.causal && rw.window > 0 ? qp - rw.window + 1 : INT_MIN;
 #pragma unroll
-      for (int q = 0; q < 16; ++q)
+      for (int q = 0; q < N / 4; ++q)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int c = 8 * q + e, j = 4 * q + 2 * r + e;
@@ -325,13 +396,13 @@ __device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m)[2], floa
       mx[r] = fmaxf(m[r], quad_max(row_max(s, r)));
     }
 #pragma unroll
-    for (int j = 0; j < 64; ++j) s[j] = fast_exp2(s[j] - mx[(j / 2) % 2]);
+    for (int j = 0; j < N; ++j) s[j] = fast_exp2(s[j] - mx[(j / 2) % 2]);
   } else {
     // every score finite and unmasked: the max on raw scores, one FFMA each
 #pragma unroll
     for (int r = 0; r < 2; ++r) mx[r] = fmaxf(m[r], quad_max(row_max(s, r)) * sl2);
 #pragma unroll
-    for (int j = 0; j < 64; ++j) s[j] = fast_exp2(fmaf(s[j], sl2, -mx[(j / 2) % 2]));
+    for (int j = 0; j < N; ++j) s[j] = fast_exp2(fmaf(s[j], sl2, -mx[(j / 2) % 2]));
   }
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -342,9 +413,10 @@ __device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m)[2], floa
 }
 
 // P rounded to bf16, as the reference rounds the probabilities to v's type.
-__device__ __forceinline__ void pack_p(uint32_t (&p)[32], const float (&s)[64]) {
+template <int N>
+__device__ __forceinline__ void pack_p(uint32_t (&p)[N / 2], const float (&s)[N]) {
 #pragma unroll
-  for (int j = 0; j < 32; ++j) p[j] = pack_bf16(s[2 * j], s[2 * j + 1]);
+  for (int j = 0; j < N / 2; ++j) p[j] = pack_bf16(s[2 * j], s[2 * j + 1]);
 }
 
 template <int D, int NC>
@@ -354,16 +426,19 @@ fa_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CU
               int Lkv, long long osb, long long osl, long long osh, int causal, int window,
               float softcap, float scale) {
   using SM = Smem<D, NC>;
-  constexpr int STAGES = SM::STAGES;
+  constexpr int STAGES = SM::STAGES, BN = SM::BN;
   constexpr int BM = NC * WG_ROWS;     // query rows per block
   extern __shared__ unsigned char smem_raw[];
   // the 128-byte swizzle repeats every 1024 bytes: align the tiles to it
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;
   unsigned char* smem = smem_raw + (base - raw);
-  // per stage: K arrived, V arrived, both consumers done with the stage; then Q arrived
+  // per stage: K arrived, V arrived, every consumer done with the stage's K (and,
+  // if SPLIT, apart from it its V); then Q arrived
   const uint32_t full_k = base + SM::bars, full_v = full_k + 8 * STAGES,
-                 empty = full_v + 8 * STAGES, q_bar = empty + 8 * STAGES;
+                 empty_k = full_v + 8 * STAGES,
+                 empty_v = SM::SPLIT ? empty_k + 8 * STAGES : empty_k,
+                 q_bar = empty_v + 8 * STAGES;
 
   const int n_qt = gridDim.x;
   // causal: the longest rows of each head first
@@ -387,7 +462,8 @@ fa_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CU
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(full_k + 8 * s, 1);
       mbar_init(full_v + 8 * s, 1);
-      mbar_init(empty + 8 * s, 128 * NC);
+      mbar_init(empty_k + 8 * s, 128 * NC);
+      if (SM::SPLIT) mbar_init(empty_v + 8 * s, 128 * NC);
     }
     mbar_init(q_bar, 1);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
@@ -406,11 +482,13 @@ fa_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CU
                    q0 + c * WG_ROWS, b);
       for (int i = 0; i < n; ++i) {
         const int s = i % STAGES, row = (t_begin + i) * BN;
-        mbar_wait(empty + 8 * s, ((i / STAGES) & 1) ^ 1);
+        const uint32_t free_parity = ((i / STAGES) & 1) ^ 1;
+        mbar_wait(empty_k + 8 * s, free_parity);
         mbar_expect_tx(full_k + 8 * s, SM::KV);
         for (int j = 0; j < SM::BOXES; ++j)
           tma_load(base + SM::k + s * SM::KV + j * BN * BOX_BYTES, &tk, full_k + 8 * s, j * 64,
                    h, row, b);
+        if constexpr (SM::SPLIT) mbar_wait(empty_v + 8 * s, free_parity);
         mbar_expect_tx(full_v + 8 * s, SM::KV);
         for (int j = 0; j < SM::BOXES; ++j)
           tma_load(base + SM::v + s * SM::KV + j * BN * BOX_BYTES, &tv, full_v + 8 * s, j * 64,
@@ -439,8 +517,8 @@ fa_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CU
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
     float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, alpha[2];
-    float sc[64];
-    uint32_t p[32];
+    float sc[BN / 2];
+    uint32_t p[BN / 4];
 
     // The first tile's scores and probabilities; then each step starts the
     // next tile's Q K^T and this tile's P V together and runs the next tile's
@@ -460,10 +538,11 @@ fa_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CU
     fence_regs(sc);
     turn_wait();
     wgmma_fence();
-    qk_async<D>(sc, q_tile, base + SM::k);
+    qk_async<D, BN>(sc, q_tile, base + SM::k);
     wgmma_wait<0>();
     turn_pass();
     fence_regs(sc);
+    if constexpr (SM::SPLIT) mbar_arrive(empty_k);
     softmax_tile(sc, m, l, alpha, t_begin * BN, masked(t_begin), rw, lane);
     pack_p(p, sc);
     for (int i = 1; i < n; ++i) {
@@ -475,16 +554,17 @@ fa_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CU
       mbar_wait(full_v + 8 * sp, ((i - 1) / STAGES) & 1);
       turn_wait();
       wgmma_fence();
-      qk_async<D>(sc, q_tile, base + SM::k + s * SM::KV);
-      pv_async<D>(acc, p, base + SM::v + sp * SM::KV);
+      qk_async<D, BN>(sc, q_tile, base + SM::k + s * SM::KV);
+      pv_async<D, BN>(acc, p, base + SM::v + sp * SM::KV);
       wgmma_wait<1>();                 // Q K^T done; P V may still run
       turn_pass();
       fence_regs(sc);
+      if constexpr (SM::SPLIT) mbar_arrive(empty_k + 8 * s);
       softmax_tile(sc, m, l, alpha, t * BN, masked(t), rw, lane);
       wgmma_wait<0>();
       fence_regs(acc);
       fence_regs(p);
-      mbar_arrive(empty + 8 * sp);
+      mbar_arrive(empty_v + 8 * sp);
 #pragma unroll
       for (int j = 0; j < D / 2; ++j) acc[j] *= alpha[(j / 2) % 2];
       pack_p(p, sc);
@@ -495,11 +575,11 @@ fa_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CU
     fence_regs(p);
     turn_wait();
     wgmma_fence();
-    pv_async<D>(acc, p, base + SM::v + sl * SM::KV);
+    pv_async<D, BN>(acc, p, base + SM::v + sl * SM::KV);
     if (c != NC - 1) turn_pass();
     wgmma_wait<0>();
     fence_regs(acc);
-    mbar_arrive(empty + 8 * sl);
+    mbar_arrive(empty_v + 8 * sl);
 
     // ---- epilogue: divide by l, round, stage through this consumer's Q tile ----
     float inv[2];
@@ -609,6 +689,7 @@ cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B, 
   // the maps travel as kernel parameters, so a captured launch keeps its own
   CUtensorMap tq, tk, tv;
   if ((err = make_map(&tq, q, D, H, Lq, B, st, WG_ROWS)) != cudaSuccess) return err;
+  constexpr int BN = Smem<D, NC>::BN;
   if ((err = make_map(&tk, k, D, H, Lkv, B, st + 3, BN)) != cudaSuccess) return err;
   if ((err = make_map(&tv, v, D, H, Lkv, B, st + 6, BN)) != cudaSuccess) return err;
   dim3 grid((Lq + NC * WG_ROWS - 1) / (NC * WG_ROWS), B * H);
@@ -661,6 +742,9 @@ extern "C" int repro_flash_attention_bf16(const void* q, const void* k, const vo
   else if (D == 128)
     err = launch<128, 2>(qp, kp, vp, op, B, H, Lq, Lkv, strides, causal, window, softcap, scale,
                          s);
+  else if (D == 256)
+    err = launch<256, 2>(qp, kp, vp, op, B, H, Lq, Lkv, strides, causal, window, softcap, scale,
+                         s);
   else
     err = cudaErrorInvalidValue;
   return (int)err;
@@ -670,5 +754,6 @@ extern "C" int repro_flash_attention_bf16(const void* q, const void* k, const vo
 // one that does not exist.
 extern "C" int repro_flash_attention_smem_bytes(int D, int NC) {
   if (D == 64) return NC == 2 ? Smem<64, 2>::bytes : NC == 3 ? Smem<64, 3>::bytes : 0;
-  return D == 128 && NC == 2 ? Smem<128, 2>::bytes : 0;
+  if (NC != 2) return 0;
+  return D == 128 ? Smem<128, 2>::bytes : D == 256 ? Smem<256, 2>::bytes : 0;
 }

@@ -2,7 +2,8 @@
 
 Replaces the Pallas TPU kernel ``repro/kernels/flash_attention.py``. The CUDA
 kernel reads q/k/v in their ``(B, L, H, D)`` layout through strides, masks the
-ragged edge itself (any ``L`` works), and takes bf16 with D in {64, 128}.
+ragged edge itself (any ``L`` works), and takes bf16 with D in {64, 128, 256}
+(256: gemma2's heads, on a ring of 64-key tiles).
 This wrapper checks what it is given and launches; it never falls back.
 """
 from __future__ import annotations
@@ -14,7 +15,7 @@ import torch
 
 from repro_torch.kernels import _build
 
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 256)
 _VP = ctypes.c_void_p
 _ARGTYPES = [_VP, _VP, _VP, _VP, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
              ctypes.c_int, _VP, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float, _VP]

@@ -5,6 +5,11 @@ Counterpart of ``examples/serve_llm.py``. The model is built on the device
 from a seed; requests are grouped into left-padded batches of ``max_batch``.
 
   PYTHONPATH=src python -m repro_torch.launch.serve_llm --device cpu --smoke --arch rwkv6-3b
+  PYTHONPATH=src python -m repro_torch.launch.serve_llm --device cpu --smoke --arch gemma2-9b \
+      --lengths 17,40
+
+``--lengths LO,HI`` draws prompt lengths from [LO, HI] (default 4,16 at
+``--smoke``, 256,2048 otherwise), e.g. past a model's sliding window.
 """
 from __future__ import annotations
 
@@ -80,6 +85,13 @@ def requests_from_seed(vocab_size: int, n: int, lengths: Sequence[int], max_new:
     return out
 
 
+def _lengths(text: str) -> tuple:
+    lo, hi = (int(x) for x in text.split(","))
+    if not 1 <= lo <= hi:
+        raise argparse.ArgumentTypeError(f"--lengths wants 1 <= LO <= HI, got {text!r}")
+    return lo, hi
+
+
 def main(argv: Optional[Sequence[str]] = None) -> None:
     import repro_torch.configs as C
 
@@ -89,9 +101,11 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     ap.add_argument("--smoke", action="store_true", help="the reduced same-family config")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--max-new", type=int, default=8)
+    ap.add_argument("--lengths", type=_lengths, default=None,
+                    help="LO,HI: prompt lengths uniform in [LO, HI]")
     args = ap.parse_args(argv)
     cfg = C.get_smoke(args.arch) if args.smoke else C.get(args.arch)
-    lengths = (4, 16) if args.smoke else (256, 2048)
+    lengths = args.lengths or ((4, 16) if args.smoke else (256, 2048))
     reqs = requests_from_seed(cfg.vocab_size, args.requests, lengths, args.max_new)
     model = transformer.build(cfg, args.device)
     warm(model, reqs)

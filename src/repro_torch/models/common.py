@@ -56,6 +56,14 @@ class ModelConfig:
     rope_theta: float = 10000.0
     qk_norm: bool = False
 
+    # MoE
+    num_experts: int = 0
+    num_shared_experts: int = 0
+    experts_per_token: int = 0
+    moe_d_ff: int = 0                # per-expert hidden dim
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 0.01
+
     # SSM (mamba2 / rwkv6)
     ssm_state_dim: int = 64
     ssm_heads: int = 0               # 0 -> num_heads

@@ -13,9 +13,12 @@ share the layer code, as in the reference:
   * ``decode_step`` — ONE token per sequence against the caches.
 
 Ported layer kinds: ``attn_bidir:dense`` (encoder), ``attn:dense`` (causal,
-with a ring KV cache), ``mamba2:none`` and ``rwkv6:none``. The sliding-window
-and chunked masks, MoE FFNs and the vision/audio front ends are not ported.
-The port runs eagerly and updates the KV ring cache in place at decode.
+with a ring KV cache), ``attn_local:dense`` (sliding window, its ring cache
+``min(window, max_len)`` long), ``attn:moe`` (``models/moe.py``),
+``mamba2:none`` and ``rwkv6:none``. The chunked mask (``attn_chunked``),
+``qk_norm`` models' other needs and the vision/audio front ends are not
+ported. The port runs eagerly and updates the KV ring cache in place at
+decode.
 """
 from __future__ import annotations
 
@@ -27,13 +30,13 @@ from torch import nn
 
 from repro_torch import device as _device
 from repro_torch.kernels import ops
-from repro_torch.models import common, ssm
+from repro_torch.models import common, moe, ssm
 from repro_torch.models.common import (ATTN, ATTN_BIDIR, ATTN_CHUNKED, ATTN_LOCAL, FFN_DENSE,
-                                       MAMBA2, RWKV6, ModelConfig, param)
+                                       FFN_MOE, MAMBA2, RWKV6, ModelConfig, param)
 
 FFN_NONE = "none"
-PORTED_KINDS = ((ATTN_BIDIR, FFN_DENSE), (ATTN, FFN_DENSE), (MAMBA2, FFN_NONE),
-                (RWKV6, FFN_NONE))
+PORTED_KINDS = ((ATTN_BIDIR, FFN_DENSE), (ATTN, FFN_DENSE), (ATTN_LOCAL, FFN_DENSE),
+                (ATTN, FFN_MOE), (MAMBA2, FFN_NONE), (RWKV6, FFN_NONE))
 
 
 def cache_capacity(cfg: ModelConfig, mixer: str, max_len: int) -> int:
@@ -66,14 +69,16 @@ def _fill_cache_from_prefill(k: torch.Tensor, v: torch.Tensor, positions: torch.
 
 
 class AttentionLayer(nn.Module):
-    """Pre-norm attention, then a pre-norm SwiGLU FFN: ``attn_bidir:dense``
-    (the encoder's, plain attention) or ``attn:dense`` (causal; prefill
-    through ``ops.flash_attention``, decode against the ring cache)."""
+    """Pre-norm attention, then a pre-norm FFN: ``attn_bidir`` (the
+    encoder's, plain attention), ``attn`` (causal) or ``attn_local`` (causal
+    within the last ``window_size`` keys); the causal kinds prefill through
+    ``ops.flash_attention`` and decode against the ring cache. The FFN is a
+    SwiGLU (``dense``) or the MoE (``moe``, its weights under ``moe.``)."""
 
-    def __init__(self, cfg: ModelConfig, mixer: str, device=None):
+    def __init__(self, cfg: ModelConfig, mixer: str, device=None, ffn: str = FFN_DENSE):
         super().__init__()
         d, dh, dt = cfg.d_model, cfg.resolved_head_dim, cfg.dtype
-        self.cfg, self.mixer = cfg, mixer
+        self.cfg, self.mixer, self.ffn = cfg, mixer, ffn
         self.ln1 = param((d,), torch.float32, device)
         self.wq = param((d, cfg.num_heads * dh), dt, device)
         self.wk = param((d, cfg.num_kv_heads * dh), dt, device)
@@ -83,18 +88,26 @@ class AttentionLayer(nn.Module):
             self.q_norm = param((dh,), torch.float32, device)
             self.k_norm = param((dh,), torch.float32, device)
         self.ln2 = param((d,), torch.float32, device)
-        self.w_gate = param((d, cfg.d_ff), dt, device)
-        self.w_up = param((d, cfg.d_ff), dt, device)
-        self.w_down = param((cfg.d_ff, d), dt, device)
+        if ffn == FFN_MOE:
+            self.moe = moe.MoE(cfg, device)
+        else:
+            self.w_gate = param((d, cfg.d_ff), dt, device)
+            self.w_up = param((d, cfg.d_ff), dt, device)
+            self.w_down = param((cfg.d_ff, d), dt, device)
 
     @torch.no_grad()
     def init_(self, gen: torch.Generator) -> None:
         scale_o = 1.0 / max(1, self.cfg.num_layers) ** 0.5
         for w in (self.ln1, self.ln2) + ((self.q_norm, self.k_norm) if self.cfg.qk_norm else ()):
             w.zero_()
-        for w in (self.wq, self.wk, self.wv, self.w_gate, self.w_up):
+        for w in (self.wq, self.wk, self.wv):
             common.dense_init_(w, gen)
         common.dense_init_(self.wo, gen, scale=scale_o)
+        if self.ffn == FFN_MOE:
+            self.moe.init_(gen)
+            return
+        for w in (self.w_gate, self.w_up):
+            common.dense_init_(w, gen)
         common.dense_init_(self.w_down, gen, scale=scale_o)
 
     def init_cache(self, batch: int, max_len: int, device=None) -> dict:
@@ -125,6 +138,8 @@ class AttentionLayer(nn.Module):
 
     def _ffn(self, x: torch.Tensor) -> torch.Tensor:
         h = common.rms_norm(x, self.ln2, self.cfg.norm_eps)
+        if self.ffn == FFN_MOE:
+            return x + moe.moe_ffn(self.cfg, self.moe, h)[0]   # serving drops the aux loss
         return x + common.swiglu(h, self.w_gate, self.w_up, self.w_down)
 
     def _attend(self, x: torch.Tensor, positions: torch.Tensor):
@@ -140,7 +155,9 @@ class AttentionLayer(nn.Module):
             mask = common.make_attention_mask(pos, pos, ATTN_BIDIR)
             out = common.attention(q, kr, vr, mask, cfg.attn_softcap)
         else:
-            out = ops.flash_attention(q, kr, vr, causal=True, softcap=cfg.attn_softcap)
+            window = cfg.window_size if self.mixer == ATTN_LOCAL else 0
+            out = ops.flash_attention(q, kr, vr, causal=True, window=window,
+                                      softcap=cfg.attn_softcap)
         out = out.reshape(b, l, cfg.num_heads * cfg.resolved_head_dim)
         return x + out @ self.wo, (k, v)
 
@@ -165,6 +182,8 @@ class AttentionLayer(nn.Module):
         v[:, slot] = v_new[:, 0].to(v.dtype)
         pos[:, slot] = offset
         valid = (pos >= 0) & (pos <= offset)
+        if self.mixer == ATTN_LOCAL:
+            valid &= pos > offset - cfg.window_size
         n_rep = cfg.num_heads // cfg.num_kv_heads
         kr, vr = common.repeat_kv(k, n_rep), common.repeat_kv(v, n_rep)
         scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), kr.float()) / math.sqrt(q.shape[-1])
@@ -244,7 +263,7 @@ def _make_layer(cfg: ModelConfig, kind: Tuple[str, str], device) -> nn.Module:
         return Mamba2Layer(cfg, device)
     if mixer == RWKV6:
         return RWKV6Layer(cfg, device)
-    return AttentionLayer(cfg, mixer, device)
+    return AttentionLayer(cfg, mixer, device, ffn=kind[1])
 
 
 class Transformer(nn.Module):

@@ -88,6 +88,33 @@ def test_flash_attention_kernel_at_the_diffusion_serving_shapes_on_card(cuda, l,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("l", [1, 63, 64, 65, 127, 129, 257])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_attention_kernel_at_head_dim_256_tile_edges_on_card(cuda, l, causal):
+    """gemma2's head dim: lengths on and beside its 64-key tiles and
+    64-row query blocks."""
+    q, k, v = (t.to(cuda, torch.bfloat16) for t in _qkv(l + 1, 2, l, l, 2, 256))
+    got = tfa.flash_attention(q, k, v, causal=causal)
+    mask = ops.attention_mask(l, l, 0, cuda) if causal else None
+    _assert_attention_close(got, ref.attention_ref(q, k, v, mask))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lq,lkv,h,window,softcap", [
+    (300, 300, 2, 130, 0.0),                   # a window across tiles
+    (300, 300, 2, 48, 50.0),                   # gemma2's local layers (window cut)
+    (200, 200, 4, 0, 30.0), (333, 333, 2, 0, 50.0),   # a softcap alone
+    (100, 300, 4, 0, 0.0), (100, 300, 2, 48, 50.0),   # q_offset > 0
+    (1100, 1100, 4, 512, 50.0),               # phase 7's gemma2 cut
+])
+def test_flash_attention_kernel_at_head_dim_256_masks_on_card(cuda, lq, lkv, h, window, softcap):
+    q, k, v = (t.to(cuda, torch.bfloat16) for t in _qkv(lq + 2 * lkv, 1, lq, lkv, h, 256))
+    got = tfa.flash_attention(q, k, v, causal=True, window=window, softcap=softcap)
+    want = ref.attention_ref(q, k, v, ops.attention_mask(lq, lkv, window, cuda), softcap)
+    _assert_attention_close(got, want)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("lq,lkv,h,d,window,softcap", [
     (100, 300, 4, 64, 0, 0.0), (1, 1810, 4, 128, 0, 0.0),     # q_offset > 0
     (300, 300, 2, 64, 130, 0.0),                               # a window across tiles

@@ -1,9 +1,12 @@
 """The port's LLM decoder and ServeEngine against the JAX package, on the CPU.
 
-The smoke ``rwkv6-3b`` and ``zamba2-1.2b`` (and a zamba2 cut whose scan plan
-has a remainder run after its cycles) are built from the reference's
-``transformer.init`` through ``convert.from_jax_lm``. Both sides run in
-float32; prompts come from numpy seeds.
+The smoke ``rwkv6-3b``, ``zamba2-1.2b`` (and a zamba2 cut whose scan plan
+has a remainder run after its cycles), ``yi-9b``, ``yi-34b``,
+``starcoder2-15b``, ``gemma2-9b`` and ``deepseek-moe-16b`` are built from the
+reference's ``transformer.init`` through ``convert.from_jax_lm``. Both sides
+run in float32; prompts come from numpy seeds. The smoke window is 16: the
+21-token prompts pass it, so the local mask binds in prefill and the local
+rings wrap in decode.
 """
 import dataclasses
 
@@ -41,7 +44,8 @@ def _configs(name):
                  for getter in (JC.get_smoke, TC.get_smoke))
 
 
-@pytest.fixture(scope="module", params=["rwkv6-3b", "zamba2-1.2b", REMAINDER])
+@pytest.fixture(scope="module", params=["rwkv6-3b", "zamba2-1.2b", REMAINDER, "yi-9b", "yi-34b",
+                                        "starcoder2-15b", "gemma2-9b", "deepseek-moe-16b"])
 def model(request):
     jcfg, tcfg = _configs(request.param)
     params = jtf.init(jcfg, jax.random.PRNGKey(0))
@@ -164,8 +168,8 @@ def test_serve_llm_records_one_row_per_request():
 
 
 def test_transformer_refuses_what_is_not_ported():
-    cfg = dataclasses.replace(TC.get_smoke("rwkv6-3b"), layer_pattern=("attn_local:dense",))
-    with pytest.raises(NotImplementedError, match="attn_local"):
+    cfg = dataclasses.replace(TC.get_smoke("rwkv6-3b"), layer_pattern=("attn_chunked:dense",))
+    with pytest.raises(NotImplementedError, match="attn_chunked"):
         ttf.Transformer(cfg, "cpu")
     m = ttf.Transformer(dataclasses.replace(TC.get_smoke("rwkv6-3b"), modality="vision"), "cpu")
     with pytest.raises(NotImplementedError, match="vision"):
