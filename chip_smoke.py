@@ -22,18 +22,27 @@ Phases:
      no library call where a softcap leaves no single PyTorch call computing
      it), each time's share of its bound and its ratio to the library
      call; at the serving shapes K1's check must also reject the output of
-     a kernel that lets the padded keys of its ragged last tile in;
+     a kernel that lets the padded keys of its ragged last tile in. K1 at
+     the heavy classes' lengths (up to 81077), whose plain scores do not
+     fit, is held on a subset of its query rows against every key (the
+     first tile, a tile edge in the middle, the ragged last tile and seeded
+     tiles), its plain time taken on those rows alone;
   4. check that a two-layer cut of each diffusion pipeline (sd3, flux,
      cogvideox, hunyuanvideo) at full width agrees on the card (bf16, through
      the kernels) with the same weights on the CPU (float32, plain versions):
      the encoder's output and one DiT forward's output (a 256 px image, or
      one second of 256 px video);
-  5. serve three full-width, full-depth sd3 requests (512, 1024, 1536 px,
-     20 steps) stage by stage through ``repro_torch.launch.quickstart.serve``,
-     counting the kernels' launches;
-  5b. the same for flux (512 and 1024 px, 4 steps), cogvideox (480 px x 2 s,
-     6 steps) and hunyuanvideo (540 px x 1 s, 6 steps), one pipeline at a
-     time, each freed before the next is built;
+  5. serve five full-width, full-depth sd3 requests (128, 256, 512, 1024,
+     1536 px, 20 steps) stage by stage through
+     ``repro_torch.launch.quickstart.serve``, counting the kernels' launches;
+  5b. the same for flux (128, 256, 512 and 1024 px, 4 steps), cogvideox
+     (480 px x 2 s, 6 steps) and hunyuanvideo (540 px x 1 s, 6 steps), one
+     pipeline at a time, each freed before the next is built;
+  5d. on each video pipeline and flux before it is freed, every class of
+     ``quickstart.HEAVY`` (flux at 2048-4096 px, cogvideox at 480 px x 4-10 s
+     and 720 px x 2-10 s, hunyuanvideo at 540 px x 2-8 s and 720 px x 1-8 s)
+     with its DDIM loop cut to one step, then the cheapest of them
+     (WHOLE_HEAVY) whole, with the same output and launch checks;
   5c. print each served request's stage times beside the profiler's
      predictions under ``H100_SXM`` (fitted to such readings by
      ``python -m repro_torch.launch.calibrate``), write them to
@@ -103,9 +112,18 @@ Phases:
      CPU gives, and on ``H100_SXM``; (d) trident with cross-node SP on
      hunyuanvideo's dynamic workload at 128 chips on ``H100_SXM``, with and
      without ``--cross-node-sp``, printing the VR and SP degree histograms.
-     Rows are written to ``chiprun_out/fast.json``.
+     Rows are written to ``chiprun_out/fast.json``;
+  12. the paper's figure scripts (``repro_torch.benchmarks.run``'s modules:
+     Figs. 3, 4, 10-15 and 17, Table 4) in quick mode on ``H100_SXM``, on the
+     host, every row written to ``chiprun_out/figures_h100.csv`` and printed
+     (simulated numbers); then the event-vs-tick smoke set on the
+     reference's constants, whose scenarios, wake-up counts and clock parity
+     must equal the committed ``BENCH_event_sim.json`` and
+     ``BENCH_unified_clock.json``.
 
-Every counted serve run (phases 5, 5b, 8 and 8b) follows one untimed run at
+Each phase prints the seconds it took.
+
+Every counted serve run (phases 5, 5b, 5d, 8 and 8b) follows one untimed run at
 each of its shapes, so its stage times hold no first-call cost. K1 is also
 held, timed and counted at every LLM's causal prefill shapes (from its
 config: heads, head dim, window, softcap) and at hunyuanvideo's causal
@@ -135,18 +153,26 @@ PEAK_BF16_TENSOR = 989e12     # FLOP/s, dense
 PEAK_F32 = 67e12              # FLOP/s, outside the tensor cores
 PEAK_HBM = 3.35e12            # bytes/s
 
-# the served pipelines: phase 5 serves the first, phase 5b the others
+# the served pipelines: phase 5 serves the first, phase 5b the others, phase
+# 5d the heavy classes of the last three
 PIPELINES = ("sd3", "flux", "cogvideox", "hunyuanvideo")
-# (K1, K2) launches of each pipeline's serve: per request and step, one K1
-# per DiT block and one K2 per block's two norms plus the final one; per
-# request, one K1 per layer of a causal encoder (hunyuanvideo's 32)
-#   sd3   3 requests x 20 steps: 24 x 60 = 1440, 49 x 60 = 2940
-#   flux  2 x 4: 56 x 8 = 448, 113 x 8 = 904
+# (K1, K2) launches of a serve (``serve_launches``): per request and step,
+# one K1 per DiT block and one K2 per block's two norms plus the final one;
+# per request, one K1 per layer of a causal encoder (hunyuanvideo's 32).
+# Phases 5 and 5b serve quickstart.REQUESTS whole:
+#   sd3   5 requests x 20 steps: 24 x 100 = 2400, 49 x 100 = 4900
+#   flux  4 x 4: 56 x 16 = 896, 113 x 16 = 1808
 #   cogvideox 1 x 6: 25 x 6 = 150, 51 x 6 = 306
 #   hunyuanvideo 1 x 6: 64 x 6 + 32 = 416, 129 x 6 = 774
-SERVE_LAUNCHES = {"sd3": (1440, 2940), "flux": (448, 904), "cogvideox": (150, 306),
-                  "hunyuanvideo": (416, 774)}
+# phase 5d quickstart.HEAVY at one step, then WHOLE_HEAVY with all its steps:
+#   flux  3 x 1 + 4: 56 x 7 = 392, 113 x 7 = 791
+#   cogvideox 7 x 1 + 6: 25 x 13 = 325, 51 x 13 = 663
+#   hunyuanvideo 7 x 1 + 6: 64 x 13 + 32 x 8 = 1088, 129 x 13 = 1677
+# the cheapest heavy class of each pipeline, which phase 5d also serves whole
+WHOLE_HEAVY = {"flux": (2048, 0.0), "cogvideox": (720, 2.0), "hunyuanvideo": (540, 2.0)}
 COND_LEN = 77                 # prompt tokens of every served request
+# Table 5's light end: the smallest classes of quickstart.REQUESTS
+LIGHT_END = (("sd3", 128, 0.0), ("sd3", 256, 0.0), ("flux", 128, 0.0), ("flux", 256, 0.0))
 CUT_RES = 256                 # phase 4's latent grid: 256 px, one second of video
 # K1, bf16: attention outputs of N(0, 1) inputs are small (rms ~ sqrt(e / L)),
 # so its limits scale with the output's rms. Elementwise, |kernel - plain|
@@ -167,6 +193,16 @@ K1_RMS = 5e-3
 # below the limits
 K1_FAULT_SHOWN = (1101, 4173, 4433)
 K1_BN = 128                    # K1's keys per KV tile: the padding of its ragged last tile
+K1_BM = 128                    # query rows of a tile (two 64-row consumers)
+# the plain version holds one 8-head group's f32 scores, B x 8 x Lq x Lkv; a
+# shape past this many bytes of them (the heavy DiT classes from L = 14477;
+# the largest shape held whole is 4 x 5975 tokens, 4.57e9 bytes) is checked
+# on a subset of its query rows against every key (``k1_rows``)
+K1_PLAIN_BYTES = 6e9
+K1_SUBSET_TILES = 4
+# K1 shapes past K1_LONG_FLOPS (a call of milliseconds or more, up to ~0.2 s
+# at L = 81077) are timed over K1_LONG_REPS calls, the others over 20
+K1_LONG_FLOPS, K1_LONG_REPS = 2e12, 3
 # K2: |kernel - plain| <= tol + tol * |plain|, elementwise (the reference's
 # kernel tests use the same form): bf16 outputs differ by an ulp or two of
 # rounding, f32 ones by the order of the sums
@@ -372,9 +408,35 @@ def k1_calls(F, fa, ref, causal: bool, window: int, softcap: float, mask) -> tup
     return kernel, plain, library
 
 
-def check_flash_attention(torch, ops, ref, fa, gen, records, main):
+def k1_rows(lq: int, seed: int) -> list:
+    """The query rows K1's check reads where the plain version cannot hold
+    every row's scores: the first K1_BM-row tile, the K1_BM rows about a tile
+    edge in the middle, the last (ragged) tile and K1_SUBSET_TILES tiles drawn
+    from ``seed``. Without a mask a query row's output depends on that row and
+    every key alone, so the check is exact on the rows it reads."""
+    import random
+    tiles = -(-lq // K1_BM)
+    mid = tiles // 2 * K1_BM
+    rows = set(range(min(K1_BM, lq))) | set(range(max(0, mid - K1_BM // 2),
+                                                  min(lq, mid + K1_BM // 2)))
+    rows |= set(range((tiles - 1) * K1_BM, lq))
+    for t in random.Random(seed).sample(range(tiles), min(tiles, K1_SUBSET_TILES)):
+        rows |= set(range(t * K1_BM, min(lq, (t + 1) * K1_BM)))
+    return sorted(rows)
+
+
+def k1_subset_agree(ref, got, q, k, v, rows):
+    """``k1_agree`` of K1's output ``got`` against the plain version on the
+    query ``rows`` of a non-causal call, every key included."""
+    return k1_agree(got[:, rows], plain_by_heads(ref, q[:, rows], k, v))
+
+
+def check_flash_attention(torch, ops, ref, fa, gen, records, main, ends):
     """``main``: (path, (B, Lq, Lkv, H, D, causal, window, softcap)) of every
-    call shape the serve phases make (``serving_shapes``)."""
+    call shape the serve phases make (``serving_shapes``); ``ends``: those
+    of Table 5's ends (``table5_end_shapes``). A shape whose plain scores
+    would pass K1_PLAIN_BYTES is held on a subset of its query rows
+    (``k1_rows``), and its plain time is taken on those rows."""
     import torch.nn.functional as F
     dev = "cuda"
     timed = {shape: path for path, shape in main}
@@ -403,7 +465,7 @@ def check_flash_attention(torch, ops, ref, fa, gen, records, main):
               (1, 200, 200, 4, 256, True, 0, 30.0), (1, 100, 300, 4, 256, True, 0, 0.0),
               (1, 100, 300, 2, 256, True, 48, 50.0)]
     out = []
-    for shape in [m[1] for m in main] + extra:
+    for shape in list(dict.fromkeys(m[1] for m in main)) + extra:
         b, lq, lkv, h, d, causal, window, cap = shape
 
         def make():
@@ -415,10 +477,19 @@ def check_flash_attention(torch, ops, ref, fa, gen, records, main):
         torch.cuda.synchronize()
         if not torch.isfinite(o).all():
             raise RuntimeError(f"flash_attention: non-finite output at {(b, lq, lkv, h, d)}")
-        want = plain_by_heads(ref, q, k, v, mask, cap)   # per head group: large f32 scores
-        err, rel, ok = k1_agree(o, want)
         rec = {"shape": [b, lq, lkv, h, d], "causal": causal, "window": window,
-               "softcap": cap, "max_abs_err": err, "rms_rel_err": rel}
+               "softcap": cap}
+        rows = want = None
+        if 4 * b * 8 * lq * lkv > K1_PLAIN_BYTES:
+            if causal or window or cap:
+                raise RuntimeError(f"K1's row-subset check takes no mask or softcap: {rec}")
+            rows = k1_rows(lq, seed=lq)
+            err, rel, ok = k1_subset_agree(ref, o, q, k, v, rows)
+            rec["checked_rows"] = len(rows)
+        else:
+            want = plain_by_heads(ref, q, k, v, mask, cap)   # per head group: large f32 scores
+            err, rel, ok = k1_agree(o, want)
+        rec.update(max_abs_err=err, rms_rel_err=rel)
         if not ok:
             raise RuntimeError(f"flash_attention disagrees with its plain version: {rec}")
         if lq in K1_FAULT_SHOWN and not causal:
@@ -435,17 +506,28 @@ def check_flash_attention(torch, ops, ref, fa, gen, records, main):
         rec["bound_ms"] = max(flops / PEAK_BF16_TENSOR, nbytes / PEAK_HBM) * 1e3
         rec["bound_by"] = "operations" if flops / PEAK_BF16_TENSOR > nbytes / PEAK_HBM \
             else "bytes"
+        del o, want
         if shape in timed:
-            sets = ring(make, nbytes)
+            sets = ring(make, nbytes) if rows is None else [(q, k, v)]
+            reps = K1_LONG_REPS if flops > K1_LONG_FLOPS else 20
             kernel, plain, library = k1_calls(F, fa, ref, causal, window, cap, mask)
-            rec["ms"] = device_ms(kernel, sets, 20)
-            rec["plain_ms"] = device_ms(plain, sets[:1], 3)
-            rec["library_ms"] = device_ms(library, sets, 20) if library else None
+            rec["ms"] = device_ms(kernel, sets, reps)
+            if rows is None:
+                rec["plain_ms"] = device_ms(plain, sets[:1], 3)
+            else:
+                # the plain version on the checked rows alone: no whole-shape time
+                rec["plain_ms"] = None
+                sub = (q[:, rows].contiguous(), k, v)
+                rec["plain_rows_ms"] = device_ms(plain, [sub], 1)
+                del sub
+            rec["library_ms"] = device_ms(library, sets, reps) if library else None
             rec["main_path"] = timed[shape]
+            rec["table5_end"] = shape in ends
             shares(rec)
+            del sets
         print("K1 flash_attention " + json.dumps(rec), flush=True)
         out.append(rec)
-        del q, k, v, o, want
+        del q, k, v
         torch.cuda.empty_cache()
     records["flash_attention"] = out
 
@@ -464,8 +546,9 @@ def k2_check_shapes(main) -> list:
     return shapes
 
 
-def check_adaln_rmsnorm(torch, ref, ar, gen, records, main):
-    """``main``: (path, (B, L, D)) of every call shape the serve phases make."""
+def check_adaln_rmsnorm(torch, ref, ar, gen, records, main, ends):
+    """``main``: (path, (B, L, D)) of every call shape the serve phases make;
+    ``ends``: those of Table 5's ends (``table5_end_shapes``)."""
     dev = "cuda"
     out = []
     timed = {shape: path for path, shape in main}
@@ -497,6 +580,7 @@ def check_adaln_rmsnorm(torch, ref, ar, gen, records, main):
             rec["plain_ms"] = device_ms(ref.adaln_rmsnorm_ref, sets, 20)
             rec["library_ms"] = None       # no single PyTorch call computes it
             rec["main_path"] = timed[(b, l, d)]
+            rec["table5_end"] = (b, l, d) in ends
             shares(rec)
         print("K2 adaln_rmsnorm " + json.dumps(rec), flush=True)
         out.append(rec)
@@ -533,23 +617,62 @@ def serving_shapes(C, llm_groups) -> tuple:
     over its latent tokens plus the prompt's; hunyuanvideo's encoder runs K1
     causally over the prompt, its KV heads repeated to the 32 query heads;
     each LLM's prefill runs it over each group of LLM_BATCH prompts
-    (``llm_groups``: the padded length of each group, by arch)."""
+    (``llm_groups``: the padded length of each group, by arch). The DiT
+    shapes of quickstart.HEAVY come last, on the path ``<pipeline> heavy``."""
     from repro_torch.launch import quickstart
     k1, k2 = [], []
     for name in PIPELINES:
         cfg = C.get(name)
-        h = cfg.dit.num_heads
         for res, sec in quickstart.REQUESTS[name]:
-            l = cfg.latent_tokens(res, sec) + COND_LEN
-            k1.append((name, (1, l, l, h, cfg.dit.d_model // h, False, 0, 0.0)))
-            k2.append((name, (1, l, cfg.dit.d_model)))
+            k1.append((name, dit_k1_shape(cfg, res, sec)))
+            k2.append((name, dit_k2_shape(cfg, res, sec)))
         enc = cfg.encoder
         if "attn:dense" in enc.layer_pattern:
             k1.append((name, (1, COND_LEN, COND_LEN, enc.num_heads, enc.resolved_head_dim,
                               True, 0, 0.0)))
     for arch, lengths in llm_groups.items():
         k1 += [(arch, shape) for shape in llm_k1_shapes(C.get(arch), lengths)]
+    for name in PIPELINES:
+        cfg = C.get(name)
+        for res, sec in quickstart.HEAVY[name]:
+            k1.append((f"{name} heavy", dit_k1_shape(cfg, res, sec)))
+            k2.append((f"{name} heavy", dit_k2_shape(cfg, res, sec)))
     return k1, k2
+
+
+def dit_k1_shape(cfg, res: int, sec: float) -> tuple:
+    """K1's shape in the DiT of one (res, sec) request: non-causal over its
+    latent tokens and the prompt's."""
+    h = cfg.dit.num_heads
+    l = cfg.latent_tokens(res, sec) + COND_LEN
+    return (1, l, l, h, cfg.dit.d_model // h, False, 0, 0.0)
+
+
+def dit_k2_shape(cfg, res: int, sec: float) -> tuple:
+    return (1, cfg.latent_tokens(res, sec) + COND_LEN, cfg.dit.d_model)
+
+
+def table5_end_shapes(C) -> tuple:
+    """The K1 and K2 shapes of the classes at Table 5's ends (LIGHT_END and
+    quickstart.HEAVY), which the kernels first ran when every class came to
+    be served; the kernel line sums them apart."""
+    from repro_torch.launch import quickstart
+    classes = list(LIGHT_END) + [(name, res, sec) for name in PIPELINES
+                                 for res, sec in quickstart.HEAVY[name]]
+    return ({dit_k1_shape(C.get(n), r, s) for n, r, s in classes},
+            {dit_k2_shape(C.get(n), r, s) for n, r, s in classes})
+
+
+def serve_launches(cfg, classes, num_steps=None) -> dict:
+    """Each kernel's launches when ``classes`` are served one request each,
+    every DDIM loop cut to ``num_steps`` where given: per request and step
+    one K1 per DiT block and one K2 per block's two norms plus the final
+    one; per request one K1 per layer of a causal encoder."""
+    steps = len(classes) * (num_steps or cfg.num_steps)
+    enc = cfg.encoder.num_layers if "attn:dense" in cfg.encoder.layer_pattern else 0
+    layers = cfg.dit.num_layers
+    return {"flash_attention": layers * steps + enc * len(classes),
+            "adaln_rmsnorm": (2 * layers + 1) * steps, "ssm_scan": 0}
 
 
 def fill_modulation(torch, pipe, seed: int) -> None:
@@ -607,8 +730,10 @@ def check_cut(torch, C, pl, name: str):
 def serve_pipeline_phase(torch, C, pl, ops, quickstart, Request, name: str, tag: str):
     """Build pipeline ``name`` on the card from a seed, fill its modulation,
     run each served shape once untimed, then serve its requests
-    (quickstart.REQUESTS) counting the kernels' launches; returns them and
-    one stage-time reading per request and stage."""
+    (quickstart.REQUESTS) counting the kernels' launches; where the pipeline
+    has heavy classes, serve them on the same pipeline (``heavy_phase``)
+    before it is freed. Returns the launches by path and one stage-time
+    reading per request and stage."""
     cfg = C.get(name)
     t0 = time.perf_counter()
     pipe = pl.build(cfg, "cuda", seed=0)
@@ -620,15 +745,35 @@ def serve_pipeline_phase(torch, C, pl, ops, quickstart, Request, name: str, tag:
     print(f"[{tag}] {name} built on the card ({sum(p.numel() for p in pipe.parameters())} "
           f"params) in {built:.1f} s, warmed at every served shape in "
           f"{time.perf_counter() - t0 - built:.1f} s", flush=True)
+    launches, readings = serve_checked(torch, ops, quickstart, Request, cfg, pipe,
+                                       quickstart.REQUESTS[name], tag)
+    by_path = {name: launches}
+    print(f"[{tag}] {name} phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    if quickstart.HEAVY[name]:
+        by_path[f"{name} heavy"], got = heavy_phase(torch, ops, quickstart, Request, cfg, pipe)
+        readings += got
+    del pipe
+    torch.cuda.empty_cache()
+    return by_path, readings
+
+
+def serve_checked(torch, ops, quickstart, Request, cfg, pipe, classes, tag: str,
+                  num_steps=None):
+    """Serve one request of each of ``classes`` through quickstart.serve,
+    each DDIM loop cut to ``num_steps`` where given, counting the kernels'
+    launches; check each output (shape (F, 16h, 16w, 3), finite, pixels in
+    [-1, 1]) and the launches (``serve_launches``). Returns the launches and
+    one reading per request and stage."""
+    name = cfg.name
+    reqs = [Request(name, res, sec) for res, sec in classes]
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
     t0 = time.perf_counter()
-    recs = quickstart.serve(cfg, reqs, device="cuda", pipe=pipe)
+    recs = quickstart.serve(cfg, reqs, device="cuda", pipe=pipe, num_steps=num_steps)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
-    k1, k2 = SERVE_LAUNCHES[name]
-    want = {"flash_attention": k1, "adaln_rmsnorm": k2, "ssm_scan": 0}
+    want = serve_launches(cfg, classes, num_steps)
     for rec in recs:
         out = rec["output"]
         res, sec = rec["resolution"], rec["seconds"]
@@ -639,21 +784,43 @@ def serve_pipeline_phase(torch, C, pl, ops, quickstart, Request, name: str, tag:
                                f"not finite of shape {shape}")
         if out.abs().max().item() > 1.0:
             raise RuntimeError(f"{name} request {res}px {sec}s: pixels outside [-1, 1]")
-        print(f"[{tag}] {name} {res}px {sec:g}s out={tuple(out.shape)} finite "
+        steps = rec["num_steps"]
+        ms, model = rec["stage_ms"], rec["predicted_ms"]
+        print(f"[{tag}] {name} {res}px {sec:g}s L={cfg.latent_tokens(res, sec) + COND_LEN} "
+              f"steps={steps} out={tuple(out.shape)} finite "
               f"mean={out.float().mean().item():.4f} std={out.float().std().item():.4f} "
-              + " ".join(f"{s}: {rec['stage_ms'][s]:.1f} ms (model {rec['predicted_ms'][s]:.1f})"
-                         for s in "EDC")
-              + f" decision={rec['decision']}", flush=True)
+              f"E: {ms['E']:.1f} ms (model {model['E']:.1f}) D: {ms['D']:.1f} ms "
+              f"(model {model['D']:.1f}), {ms['D'] / steps:.1f} ms a step, measured / model "
+              f"{ms['D'] / model['D']:.3f} C: {ms['C']:.1f} ms (model {model['C']:.1f}) "
+              f"decision={rec['decision']}", flush=True)
     print(f"[{tag}] {name} served {len(recs)} requests in {wall:.2f} s, peak memory "
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB, launches {launches}",
           flush=True)
     if launches != want:
         raise RuntimeError(f"{name}: kernel launches {launches}, expected {want}")
     readings = [{"pipeline": name, "resolution": rec["resolution"], "seconds": rec["seconds"],
-                 "stage": s, "ms": rec["stage_ms"][s]} for rec in recs for s in "EDC"]
-    del pipe, recs
-    torch.cuda.empty_cache()
+                 "num_steps": rec["num_steps"], "stage": s, "ms": rec["stage_ms"][s]}
+                for rec in recs for s in "EDC"]
     return launches, readings
+
+
+def heavy_phase(torch, ops, quickstart, Request, cfg, pipe):
+    """Phase 5d on a built pipeline: each class of quickstart.HEAVY once
+    untimed at one DDIM step (``quickstart.warm``), then served with its loop
+    cut to one step, then WHOLE_HEAVY's class served with all its steps.
+    Returns the launches of both serves and their readings."""
+    name = cfg.name
+    t0 = time.perf_counter()
+    heavy = quickstart.HEAVY[name]
+    quickstart.warm(pipe, [Request(name, res, sec) for res, sec in heavy])
+    print(f"[5d] {name} warmed at its {len(heavy)} heavy classes in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    one, readings = serve_checked(torch, ops, quickstart, Request, cfg, pipe, heavy, "5d",
+                                  num_steps=1)
+    whole, got = serve_checked(torch, ops, quickstart, Request, cfg, pipe,
+                               (WHOLE_HEAVY[name],), "5d")
+    print(f"[5d] {name} heavy phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    return {k: one[k] + whole[k] for k in one}, readings + got
 
 
 def llm_requests(serve_llm, cfg):
@@ -937,15 +1104,18 @@ def out_path(name: str) -> str:
 
 def calibration_phase(readings: list) -> None:
     """Each served request's stage time beside the profiler's prediction
-    under H100_SXM; fails if a fitted Diffuse reading leaves the band."""
+    under H100_SXM (a Diffuse cut to fewer steps beside the prediction scaled
+    to them); fails if a fitted Diffuse reading leaves the band. The heavy
+    classes' readings are reported, not held to the band: no knob was
+    fitted to them."""
     from repro_torch.core.profiler import H100_SXM
     from repro_torch.launch import calibrate
     with open(out_path("stage_times.json"), "w") as f:
         json.dump(readings, f, indent=1)
     for row in calibrate.table(H100_SXM, readings):
         print(f"[5c] {row['pipeline']} {row['resolution']}px {row['seconds']:g}s "
-              f"{row['stage']}: measured {row['ms']:.2f} ms, predicted "
-              f"{row['predicted_ms']:.2f} ms, measured / predicted "
+              f"{row['num_steps']} steps {row['stage']}: measured {row['ms']:.2f} ms, "
+              f"predicted {row['predicted_ms']:.2f} ms, measured / predicted "
               f"{row['measured_over_predicted']:.3f}"
               + (" (fitted)" if row["fitted"] else ""), flush=True)
     print(f"[5c] stage readings {json.dumps(readings)}", flush=True)
@@ -1345,6 +1515,59 @@ def fast_phase(phase10: dict, chips=None, duration=None) -> list:
     return rows
 
 
+# phase 12: the committed BENCH files the event smoke on the reference's
+# constants is held to, and their fields that no wall clock moves
+EVENT_SMOKE_BENCH = {"event": "BENCH_event_sim.json", "unified": "BENCH_unified_clock.json"}
+EVENT_SMOKE_FIELDS = ("scenarios", "sched_wakeups_event", "sched_wakeups_tick", "metrics_match")
+
+
+def figures_phase() -> list:
+    """Phase 12, on the host: the paper's figure scripts
+    (``repro_torch.benchmarks.run``'s modules) in quick mode on
+    ``H100_SXM``, every row written to ``chiprun_out/figures_h100.csv`` and
+    printed as ``name = value`` (simulated numbers); then the event-vs-tick
+    smoke set on the reference's constants, held to the committed
+    EVENT_SMOKE_BENCH files in EVENT_SMOKE_FIELDS (its clock parity must
+    hold)."""
+    from repro_torch.benchmarks import common, e2e
+    from repro_torch.benchmarks import run as bench
+    from repro_torch.core.profiler import H100_SXM, REFERENCE_HW
+    out = []
+    with open(out_path("figures_h100.csv"), "w") as f:
+        f.write(f"# simulated: the profiler's {H100_SXM.name} constants, not measured\n")
+        for name in bench.MODULES:
+            t0 = time.perf_counter()
+            rows = bench.run_module(name, quick=True, hw=H100_SXM)
+            common.emit(rows, file=f)
+            for row in rows:
+                print(f"[12] {row[0]} = {row[1]}", flush=True)
+            print(f"[12] {name}: {len(rows)} rows, simulated on {H100_SXM.name}, in "
+                  f"{time.perf_counter() - t0:.1f} s of host time", flush=True)
+            out += rows
+    paths = {k: out_path(base.replace(".json", ".torch_reference_smoke.json"))
+             for k, base in EVENT_SMOKE_BENCH.items()}
+    t0 = time.perf_counter()
+    rows = e2e.run_smoke(bench_path=paths["event"], unified_bench_path=paths["unified"],
+                         hw=REFERENCE_HW, repeats=1)
+    for key, base in EVENT_SMOKE_BENCH.items():
+        with open(paths[key]) as f:
+            got = json.load(f)
+        with open(os.path.join(ROOT, base)) as f:
+            want = json.load(f)
+        diff = [k for k in EVENT_SMOKE_FIELDS if got[k] != want[k]]
+        if diff or got["metrics_match"] is not True:
+            raise RuntimeError(f"event smoke on the reference's constants: {diff} differ from "
+                               f"{base} ({ {k: got[k] for k in diff} })")
+    speed = next(r for r in rows if r[0].endswith("speedup_event_vs_tick"))
+    print(f"[12] event smoke on the reference's constants: wake-ups "
+          f"{got['sched_wakeups_event']} event / {got['sched_wakeups_tick']} tick, metrics "
+          f"match, as the committed {', '.join(EVENT_SMOKE_BENCH.values())}; event clock "
+          f"{speed[1]}x the tick clock ({speed[2]['wall_event_s']} / "
+          f"{speed[2]['wall_tick_s']} s of host time) in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return out
+
+
 KERNELS = (("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
             "src/repro/kernels/flash_attention.py:85"),
            ("adaln_rmsnorm", "src/repro_torch/csrc/adaln_rmsnorm.cu",
@@ -1358,11 +1581,13 @@ def kernel_records(records: dict, by_path: dict) -> list:
     its largest error, and its ms, plain ms, bound ms and library ms summed
     over one call at each shape the serve phases give it. The library time
     sums the shapes that have a library call and names those that have none
-    (``library_missing``); null where no shape has one."""
+    (``library_missing``); null where no shape has one. The plain time sums
+    the shapes timed whole and names those timed on a subset of their rows
+    (``plain_missing``). ``sums`` splits the four sums between the shapes of
+    Table 5's ends (``table5_end_shapes``) and the others."""
     kernels = []
     for name, source, replaces in KERNELS:
         rows = [r for r in records[name] if r.get("main_path")]
-        lib = [r["library_ms"] for r in rows if r["library_ms"] is not None]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(counts[name] for counts in by_path.values()),
@@ -1370,19 +1595,30 @@ def kernel_records(records: dict, by_path: dict) -> list:
             "max_abs_err": max(r["max_abs_err"] for r in records[name]),
             # one call at each shape the serve phases give the kernel
             "shapes": [r["shape"] for r in rows],
-            "ms": sum(r["ms"] for r in rows),
-            "plain_ms": sum(r["plain_ms"] for r in rows),
-            "bound_ms": sum(r["bound_ms"] for r in rows),
+            **time_sums(rows),
             "bound_by": rows[-1]["bound_by"],
-            "library_ms": sum(lib) if lib else None,
-            "library_missing": [r["shape"] for r in rows if r["library_ms"] is None] if lib
-                               else None,
+            "sums": {"table5_ends": time_sums([r for r in rows if r.get("table5_end")]),
+                     "others": time_sums([r for r in rows if not r.get("table5_end")])},
             "ms_by_path": ms_by(rows, lambda r: r["main_path"]),
             # K1's record shape is (B, Lq, Lkv, H, D)
             "ms_by_head_dim": (ms_by(rows, lambda r: str(r["shape"][4]))
                                if name == "flash_attention" else None),
         })
     return kernels
+
+
+def time_sums(rows) -> dict:
+    """ms, plain ms, bound ms and library ms summed over timed records, with
+    the shapes that have no whole plain time or no library call."""
+    lib = [r["library_ms"] for r in rows if r["library_ms"] is not None]
+    plain = [r["plain_ms"] for r in rows if r["plain_ms"] is not None]
+    return {"ms": sum(r["ms"] for r in rows),
+            "plain_ms": sum(plain) if plain else None,
+            "plain_missing": [r["shape"] for r in rows if r["plain_ms"] is None] or None,
+            "bound_ms": sum(r["bound_ms"] for r in rows),
+            "library_ms": sum(lib) if lib else None,
+            "library_missing": ([r["shape"] for r in rows if r["library_ms"] is None] if lib
+                                else None)}
 
 
 def ms_by(rows, key) -> dict:
@@ -1408,65 +1644,90 @@ def main() -> int:
     from repro_torch.models import transformer as tf
 
     t_all = time.perf_counter()
+    marks = [t_all]
+
+    def lap(tag: str) -> None:
+        """Print the seconds phase ``tag`` took."""
+        now = time.perf_counter()
+        print(f"[{tag}] phase took {now - marks[-1]:.1f} s", flush=True)
+        marks.append(now)
+
     card = smi()
-    print(f"[1] card: {card}; torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
+    print(f"[1] card: {card}; torch {torch.__version__} cuda {torch.version.cuda} "
+          f"cudnn {torch.backends.cudnn.version()}", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    t0 = time.perf_counter()
     _build.library()
-    print(f"[2] kernels built and loaded in {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"[2] kernels built and loaded in {time.perf_counter() - marks[-1]:.1f} s", flush=True)
     print(f"[2] K1 ptxas: {k1_build_report(_build)}", flush=True)
     print(f"[2] K2 ptxas: {k2_build_report(_build)}", flush=True)
     print(f"[2] K3 ptxas: {k3_build_report(_build)}", flush=True)
+    lap("2")
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     records = {}
     llm_groups = {arch: group_lengths(llm_requests(serve_llm, C.get(arch)))
                   for arch in LLM_ARCHS + ATTN_ARCHS}
     k1_shapes, k2_shapes = serving_shapes(C, llm_groups)
-    check_flash_attention(torch, ops, ref, fa, gen, records, k1_shapes)
-    check_adaln_rmsnorm(torch, ref, ar, gen, records, k2_shapes)
+    k1_ends, k2_ends = table5_end_shapes(C)
+    check_flash_attention(torch, ops, ref, fa, gen, records, k1_shapes, k1_ends)
+    check_adaln_rmsnorm(torch, ref, ar, gen, records, k2_shapes, k2_ends)
     print("[3] kernels agree with their plain versions", flush=True)
+    lap("3")
 
     for name in PIPELINES:
         t0 = time.perf_counter()
         cut = check_cut(torch, C, pl, name)
         print(f"[4] two-layer {name} cut, card vs CPU: {json.dumps(cut)} "
               f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    lap("4")
 
     by_path, readings = {}, []
     for name in PIPELINES:
-        by_path[name], got = serve_pipeline_phase(torch, C, pl, ops, quickstart, Request, name,
-                                                  "5" if name == "sd3" else "5b")
+        paths, got = serve_pipeline_phase(torch, C, pl, ops, quickstart, Request, name,
+                                          "5" if name == "sd3" else "5b")
+        by_path.update(paths)
         readings += got
+    lap("5-5d")
     calibration_phase(readings)
     host_constants_phase(torch, C, quickstart, Request)
+    lap("5c")
 
     check_ssm_scan(torch, ref, ss, gen, records,
                    [(arch, LLM_BATCH, l, C.get(arch).resolved_ssm_heads, arch == "rwkv6-3b",
                      "per-head" if arch == "rwkv6-3b" else "zamba2")
                     for arch in LLM_ARCHS for l in llm_groups[arch]])
     print("[6] ssm_scan agrees with its plain version", flush=True)
+    lap("6")
 
     for arch in LLM_ARCHS + ATTN_ARCHS:
         t0 = time.perf_counter()
         cut = check_llm_cut(torch, C, tf, arch)
         print(f"[7] {arch} cut, card vs CPU, rms err / rms: {json.dumps(cut)} "
               f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    lap("7")
 
     for arch in LLM_ARCHS + ATTN_ARCHS:
         by_path[arch] = serve_llm_phase(torch, C, tf, ops, serve_llm, arch,
                                         "8b" if arch in LONG_ARCHS else "8")
+    lap("8-8b")
 
-    t0 = time.perf_counter()
     cluster_phase()
-    print(f"[9] cluster phase done in {time.perf_counter() - t0:.1f} s", flush=True)
-
+    lap("9")
     _, phase10 = fleet_phase()
+    lap("10")
     fast_phase(phase10)
+    lap("11")
+    figures_phase()
+    lap("12")
 
     kernels = kernel_records(records, by_path)
+    for k in kernels:
+        sums = k["sums"]
+        print(f"[sums] {k['name']}: shapes of Table 5's ends "
+              f"{json.dumps(sums['table5_ends'])}; the others {json.dumps(sums['others'])}",
+              flush=True)
     print(f"total {time.perf_counter() - t_all:.1f} s", flush=True)
     print(smi())
     print(json.dumps({"kernels": kernels}))

@@ -4,8 +4,11 @@
 
 The input is the JSON list ``chip_smoke.py`` writes after its serve phases:
 one reading per served request and stage, ``{"pipeline", "resolution",
-"seconds", "stage", "ms"}``, each stage on one chip after an untimed run at
-its shape. Fitted, by least squares on log(predicted / measured):
+"seconds", "num_steps", "stage", "ms"}``, each stage on one chip after an
+untimed run at its shape (``num_steps``: the DDIM steps its Diffuse ran,
+fewer than the config's for a heavy class cut to one step; the prediction is
+scaled to them, and only readings of whole requests are fitted). Fitted,
+by least squares on log(predicted / measured):
 
 * ``mfu`` and ``seq_mfu_knee`` to the Diffuse readings of ``FIT_DIFFUSE``
   (sd3 at 512 px is left out: its Diffuse is host-bound and moves between
@@ -31,6 +34,7 @@ from typing import Dict, List, Sequence, Tuple
 import repro_torch.configs as C
 from repro_torch.core.profiler import H100_SXM, Hardware, Profiler
 from repro_torch.core.request import Request
+from repro_torch.launch import quickstart
 
 # (pipeline, resolution, seconds) of the readings each knob is fitted to
 FIT_DIFFUSE = (("sd3", 1024, 0.0), ("sd3", 1536, 0.0), ("flux", 512, 0.0),
@@ -48,21 +52,28 @@ def _key(r: Dict) -> Tuple[str, int, float]:
 
 
 def predict_ms(hw: Hardware, pipeline: str, resolution: int, seconds: float,
-               stage: str) -> float:
-    """The profiler's time for one request's stage on one chip."""
+               stage: str, num_steps=None) -> float:
+    """The profiler's time for one request's stage on one chip, its Diffuse
+    cut to ``num_steps`` DDIM steps where given."""
     prof = Profiler(C.get(pipeline), hw=hw)
     req = Request(pipeline, resolution, seconds, cond_len=COND_LEN)
-    return prof.stage_time(req, stage, prof.k_min) * 1e3
+    return quickstart.predicted_ms(prof, req, stage, prof.k_min, num_steps)
+
+
+def _predict(hw: Hardware, r: Dict) -> float:
+    return predict_ms(hw, *_key(r), r["stage"], r.get("num_steps"))
 
 
 def _log_sq(hw: Hardware, readings: Sequence[Dict]) -> float:
-    return sum(math.log(predict_ms(hw, *_key(r), r["stage"]) / r["ms"]) ** 2
-               for r in readings)
+    return sum(math.log(_predict(hw, r) / r["ms"]) ** 2 for r in readings)
 
 
 def _select(readings: Sequence[Dict], stage: str, keys) -> List[Dict]:
+    """The readings of whole requests of ``keys`` at ``stage``."""
     want = set(keys)
-    return [r for r in readings if r["stage"] == stage and _key(r) in want]
+    return [r for r in readings if r["stage"] == stage and _key(r) in want
+            and r.get("num_steps", C.get(r["pipeline"]).num_steps)
+            == C.get(r["pipeline"]).num_steps]
 
 
 def _argmin(f, lo: float, hi: float, steps: int = 48, rounds: int = 6) -> float:
@@ -100,12 +111,13 @@ def fit(readings: Sequence[Dict], hw: Hardware = H100_SXM) -> Hardware:
 def table(hw: Hardware, readings: Sequence[Dict]) -> List[Dict]:
     """Each reading with its prediction under ``hw``, their ratio, and
     whether the reading is one a knob was fitted to."""
-    fitted = {("D", k) for k in FIT_DIFFUSE} | {("C", k) for k in FIT_DECODE}
+    fitted = {id(r) for stage, keys in (("D", FIT_DIFFUSE), ("C", FIT_DECODE))
+              for r in _select(readings, stage, keys)}
     out = []
     for r in readings:
-        pred = predict_ms(hw, *_key(r), r["stage"])
+        pred = _predict(hw, r)
         out.append(dict(r, predicted_ms=pred, measured_over_predicted=r["ms"] / pred,
-                        fitted=(r["stage"], _key(r)) in fitted))
+                        fitted=id(r) in fitted))
     return out
 
 

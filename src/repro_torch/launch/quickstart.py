@@ -7,8 +7,13 @@ idle units, and each decision's Encode -> Diffuse -> Decode runs on the
 device with every stage timed.
 
   PYTHONPATH=src python -m repro_torch.launch.quickstart --pipeline flux --device cpu --smoke
+  PYTHONPATH=src python -m repro_torch.launch.quickstart --pipeline cogvideox --heavy 720x10 \\
+      --num-steps 1
 
 ``--pipeline`` is one of sd3 (the default), flux, cogvideox and hunyuanvideo.
+Without ``--heavy`` it serves the pipeline's REQUESTS classes; ``--heavy``
+serves classes of HEAVY, and ``--num-steps`` cuts every DDIM loop (the
+records then carry the steps, and the Diffuse prediction is scaled to them).
 """
 from __future__ import annotations
 
@@ -26,22 +31,51 @@ from repro_torch.core.profiler import H100_SXM, Profiler
 from repro_torch.core.request import STAGES, Request
 from repro_torch.models import pipeline as pl
 
-# The (resolution, seconds) classes served on one chip: classes of the
-# reference's MIXES[pipeline]["light"] (core/workloads.py). The heavier ones
-# (flux at 2048-4096 px, cogvideox at 720 px or past 2 s, hunyuanvideo at
-# 720 px or past 1 s) are not served yet.
+# Table 5's (resolution, seconds) classes (core/workloads.py MIXES), split
+# in two. REQUESTS: the classes served whole, with all their steps, from
+# sd3 and flux at 128 px up to the middle of each mix. HEAVY: the rest, up
+# to flux at 4096 px (65613 DiT tokens) and cogvideox at 720 px x 10 s
+# (81077), whose Diffuse runs for seconds a step on one H100.
 REQUESTS = {
-    "sd3": ((512, 0.0), (1024, 0.0), (1536, 0.0)),
-    "flux": ((512, 0.0), (1024, 0.0)),
+    "sd3": ((128, 0.0), (256, 0.0), (512, 0.0), (1024, 0.0), (1536, 0.0)),
+    "flux": ((128, 0.0), (256, 0.0), (512, 0.0), (1024, 0.0)),
     "cogvideox": ((480, 2.0),),
     "hunyuanvideo": ((540, 1.0),),
 }
+HEAVY = {
+    "sd3": (),
+    "flux": ((2048, 0.0), (3072, 0.0), (4096, 0.0)),
+    "cogvideox": ((480, 4.0), (480, 8.0), (480, 10.0), (720, 2.0), (720, 4.0), (720, 8.0),
+                  (720, 10.0)),
+    "hunyuanvideo": ((540, 2.0), (540, 4.0), (540, 8.0), (720, 1.0), (720, 2.0), (720, 4.0),
+                     (720, 8.0)),
+}
 
 
-def smoke_requests(pipeline: str) -> tuple:
-    """REQUESTS[pipeline] scaled down for the SMOKE configs: an eighth of the
-    side, half the seconds (the videos keep two or more latent frames)."""
-    return tuple((res // 8, sec / 2) for res, sec in REQUESTS[pipeline])
+def smoke_requests(pipeline: str, table: Optional[Dict] = None) -> tuple:
+    """``table[pipeline]`` (REQUESTS by default, or HEAVY) scaled down for the
+    SMOKE configs (``smoke_classes``)."""
+    return smoke_classes((table or REQUESTS)[pipeline])
+
+
+def smoke_classes(classes) -> tuple:
+    """(resolution, seconds) classes at the SMOKE configs' geometry: an
+    eighth of the side, half the seconds (the videos keep two or more latent
+    frames)."""
+    return tuple((res // 8, sec / 2) for res, sec in classes)
+
+
+def predicted_ms(prof: Profiler, req: Request, stage: str, chips: int,
+                 num_steps: Optional[int] = None) -> float:
+    """The profiler's ms for one stage of ``req`` on ``chips`` chips. With
+    ``num_steps``, Diffuse runs that many DDIM steps instead of the
+    config's: its FLOPs and bytes are linear in the steps, the dispatch
+    overhead is paid once a stage, so only the steps' part is scaled."""
+    t = prof.stage_time(req, stage, chips)
+    if stage == "D" and num_steps is not None:
+        fixed = prof.hw.dispatch_overhead
+        t = fixed + (t - fixed) * num_steps / prof.cfg.num_steps
+    return t * 1e3
 
 
 @torch.no_grad()
@@ -61,14 +95,15 @@ def warm(pipe: pl.Pipeline, requests: Sequence[Request]) -> None:
 
 
 def serve(cfg: pl.PipelineConfig, requests: Sequence[Request], device=None, seed: int = 0,
-          pipe: Optional[pl.Pipeline] = None) -> List[Dict]:
+          pipe: Optional[pl.Pipeline] = None, num_steps: Optional[int] = None) -> List[Dict]:
     """Serve ``requests`` on one chip: ``device``, ``cuda`` by default.
 
     Returns one record per request, in the order given: its output pixels,
     the measured ms of each stage (``stage_ms``), the profiler's prediction
-    for the same stage on ``H100_SXM`` (``predicted_ms``) and the dispatch
-    decision. ``pipe`` may carry an already built pipeline; otherwise one is
-    built from ``seed``.
+    for the same stage on ``H100_SXM`` (``predicted_ms``), the DDIM steps
+    its Diffuse ran (``num_steps``: the config's, or the ``num_steps`` given
+    to cut the loop) and the dispatch decision. ``pipe`` may carry an
+    already built pipeline; otherwise one is built from ``seed``.
     """
     dev = _device.resolve(device)
     if pipe is None:
@@ -109,7 +144,7 @@ def serve(cfg: pl.PipelineConfig, requests: Sequence[Request], device=None, seed
             with timers["E"]:
                 cond = pl.encode(pipe, toks)
             with timers["D"]:
-                lat = pl.diffuse(pipe, cond, shape, noise=noise)
+                lat = pl.diffuse(pipe, cond, shape, num_steps=num_steps, noise=noise)
             with timers["C"]:
                 out = pl.decode(pipe, lat, grid)
             stage_ms = {s: timers[s].ms() for s in STAGES}
@@ -123,16 +158,33 @@ def serve(cfg: pl.PipelineConfig, requests: Sequence[Request], device=None, seed
                     r.stage_done[s] = done
                 records[index[r.rid]] = {
                     "rid": r.rid, "resolution": r.resolution, "seconds": r.seconds,
-                    "batch": len(batch),
+                    "batch": len(batch), "num_steps": num_steps or cfg.num_steps,
                     "output": out[j * frames:(j + 1) * frames],
                     "stage_ms": stage_ms,
-                    "predicted_ms": {s: prof.stage_time(r, s, chips[s]) * 1e3 for s in STAGES},
+                    "predicted_ms": {s: predicted_ms(prof, r, s, chips[s], num_steps)
+                                     for s in STAGES},
                     "decision": {"vr_type": d.vr_type, "degree": d.degree,
                                  "d_units": d.d_units, "e_units": d.e_units,
                                  "c_units": d.c_units},
                 }
                 pending.remove(r)
     return records
+
+
+def heavy_classes(pipeline: str, spec: str) -> tuple:
+    """The HEAVY classes ``spec`` names: ``all``, or a comma list of RES or
+    RESxSEC (``720x10``), each of which must be one of HEAVY[pipeline]."""
+    table = HEAVY[pipeline]
+    if spec == "all":
+        return table
+    out = []
+    for item in spec.split(","):
+        res, _, sec = item.partition("x")
+        cls = (int(res), float(sec or 0.0))
+        if cls not in table:
+            raise ValueError(f"{pipeline} has no heavy class {item}: {table}")
+        out.append(cls)
+    return tuple(out)
 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
@@ -142,14 +194,24 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     ap.add_argument("--pipeline", default="sd3", choices=list(C.PIPELINE_IDS))
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     ap.add_argument("--smoke", action="store_true", help="the reduced same-family pipeline")
+    ap.add_argument("--heavy", default=None, metavar="RES[xSEC],...",
+                    help="serve these classes of HEAVY (e.g. 4096 or 720x10; 'all' for "
+                         "every one) instead of REQUESTS")
+    ap.add_argument("--num-steps", type=int, default=None,
+                    help="cut each request's DDIM loop to this many steps")
     args = ap.parse_args(argv)
     cfg = C.get_smoke(args.pipeline) if args.smoke else C.get(args.pipeline)
-    classes = smoke_requests(args.pipeline) if args.smoke else REQUESTS[args.pipeline]
+    classes = REQUESTS[args.pipeline]
+    if args.heavy:
+        classes = heavy_classes(args.pipeline, args.heavy)
+    if args.smoke:
+        classes = smoke_classes(classes)
     reqs = [Request(cfg.name, res, sec) for res, sec in classes]
     pipe = pl.build(cfg, args.device)
     warm(pipe, reqs)
-    for rec in serve(cfg, reqs, device=args.device, pipe=pipe):
-        print(f"res={rec['resolution']} s={rec['seconds']} out={tuple(rec['output'].shape)} "
+    for rec in serve(cfg, reqs, device=args.device, pipe=pipe, num_steps=args.num_steps):
+        print(f"res={rec['resolution']} s={rec['seconds']} steps={rec['num_steps']} "
+              f"out={tuple(rec['output'].shape)} "
               f"stage_ms={ {s: round(v, 3) for s, v in rec['stage_ms'].items()} } "
               f"decision={rec['decision']}")
 

@@ -36,9 +36,14 @@ CHECKED = smoke.k2_check_shapes([("", s) for s in SERVED]) + [
 
 
 def test_served_shapes_are_the_seven_of_the_diffusion_paths():
-    assert sorted(SERVED) == sorted([(1, 1101, 1536), (1, 4173, 1536), (1, 9293, 1536),
-                                     (1, 1101, 3072), (1, 4173, 3072), (1, 7277, 3072),
-                                     (1, 4433, 3072)])
+    """The seven shapes of the middle classes, and beside them those of
+    Table 5's ends (the light end and the heavy classes, L up to 81077)."""
+    _, ends = smoke.table5_end_shapes(C)
+    assert sorted(s for s in SERVED if s not in ends) == sorted(
+        [(1, 1101, 1536), (1, 4173, 1536), (1, 9293, 1536), (1, 1101, 3072), (1, 4173, 3072),
+         (1, 7277, 3072), (1, 4433, 3072)])
+    assert ends <= set(SERVED) and len(SERVED) == 7 + len(ends) == 25
+    assert max(l for _, l, _ in SERVED) == 81077
 
 
 @pytest.mark.parametrize("b,l,d,dtype", CHECKED,
@@ -59,7 +64,13 @@ def test_plan_is_a_valid_instantiation(b, l, d, dtype):
     assert p["smem_bytes"] == 2 * d * dtype.itemsize <= 48 * 1024
 
 
-@pytest.mark.parametrize("b,l,d", SERVED)
+# the served shapes with rows for two blocks of 4 one-row warps an SM; the
+# light end's (L = 141, 333) spread over the SMs on fewer warps
+LONG = [s for s in SERVED if s[0] * s[1] >= 2 * tar.SMS * 4]
+SHORT = [s for s in SERVED if s not in LONG]
+
+
+@pytest.mark.parametrize("b,l,d", LONG)
 def test_plan_at_the_served_shapes(b, l, d):
     """bf16 at D = 1536 and 3072: every lane of a warp holds 6 or 12 full
     vectors (none masked), 4 warps a block, and the grid holds at least two
@@ -67,6 +78,16 @@ def test_plan_at_the_served_shapes(b, l, d):
     p = tar.plan(b, l, d, torch.bfloat16)
     assert p["lanes"] == 32 and p["vectors"] * 32 * 8 == d and p["warps"] == 4
     assert p["grid"][0] * p["grid"][1] >= 2 * tar.SMS
+
+
+@pytest.mark.parametrize("b,l,d", SHORT)
+def test_plan_at_the_light_end_gives_each_row_a_block(b, l, d):
+    """The light end's few rows fill fewer than two 4-warp blocks an SM, so
+    the plan halves the warps down to one: a block a row, still full
+    vectors."""
+    p = tar.plan(b, l, d, torch.bfloat16)
+    assert l in (141, 333) and p["lanes"] == 32 and p["vectors"] * 32 * 8 == d
+    assert p["warps"] == 1 and p["grid"] == (l, b)
 
 
 def test_plan_spreads_short_calls_over_the_sms():

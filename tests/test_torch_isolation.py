@@ -1,5 +1,5 @@
-"""The port stands alone: no JAX and nothing of the JAX package, and no
-quiet fallback to the CPU."""
+"""The port stands alone: no JAX, nothing of the JAX package and nothing
+of its top-level ``benchmarks`` package, and no quiet fallback to the CPU."""
 import ast
 import os
 import pkgutil
@@ -24,7 +24,7 @@ PKG = ROOT / "src" / "repro_torch"
 
 def _forbidden(name: str) -> bool:
     top = name.split(".")[0]
-    return top == "jax" or top.startswith("jax") or top == "repro"
+    return top == "jax" or top.startswith("jax") or top in ("repro", "benchmarks")
 
 
 def test_port_imports_no_jax_and_no_reference_package():
@@ -34,14 +34,14 @@ def test_port_imports_no_jax_and_no_reference_package():
         f"for m in {mods!r}: importlib.import_module(m)\n"
         f"spec = importlib.util.spec_from_file_location('chip_smoke', {str(ROOT / 'chip_smoke.py')!r})\n"
         "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
-        "bad = sorted(n for n in sys.modules if n.split('.')[0] == 'repro'"
+        "bad = sorted(n for n in sys.modules if n.split('.')[0] in ('repro', 'benchmarks')"
         " or n.split('.')[0].startswith('jax'))\n"
         "print(len(sys.modules)); assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, env=env,
                          cwd=str(ROOT), timeout=120)
     assert out.returncode == 0, out.stderr
-    assert len(mods) >= 32
+    assert len(mods) >= 32 and "repro_torch.benchmarks.e2e" in mods
 
 
 def test_no_source_names_jax_or_the_reference_package():

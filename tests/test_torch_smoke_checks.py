@@ -713,3 +713,104 @@ def test_flash_attention_ab_reads_ptxas_and_builds_a_trapping_copy():
     assert trap.count('asm volatile("trap;")') == 1 and source.count("trap;") == 0
     with pytest.raises(ValueError, match="poll loop"):
         ab.trapping(trap)
+
+
+@pytest.mark.parametrize("length", [300, 1101])
+def test_k1_row_subset_reads_the_edges_of_the_query_tiles(length):
+    rows = smoke.k1_rows(length, seed=length)
+    bm = smoke.K1_BM
+    tiles = -(-length // bm)
+    mid = tiles // 2 * bm
+    assert set(range(bm)) <= set(rows)                                   # the first tile
+    assert set(range(mid - bm // 2, min(length, mid + bm // 2))) <= set(rows)   # a middle edge
+    assert set(range((tiles - 1) * bm, length)) <= set(rows)             # the ragged last tile
+    assert rows == sorted(set(rows)) and rows[-1] == length - 1
+    assert rows == smoke.k1_rows(length, seed=length)                    # seeded
+
+
+@pytest.mark.parametrize("length", [300, 1101])
+def test_k1_row_subset_check_passes_rounding_and_rejects_a_wrong_last_tile(length):
+    """K1's check where the plain scores of every row do not fit: on the
+    subset of query rows it reads, it passes the plain version and K1's
+    rounding (the CPU model) and rejects a stand-in whose ragged last query tile alone is wrong (its
+    rows hold the outputs of the tile before)."""
+    q, k, v = _k1_inputs(length)
+    rows = smoke.k1_rows(length, seed=length)
+    assert smoke.k1_subset_agree(ref, ref.attention_ref(q, k, v), q, k, v, rows)[2]
+    got = k1_rounding_model(q, k, v)
+    err, rel, ok = smoke.k1_subset_agree(ref, got, q, k, v, rows)
+    print(f"L={length} rounding on {len(rows)} rows: max err {err:.5f}, rms err / rms {rel:.5f}")
+    assert ok
+    last = (length - 1) // smoke.K1_BM * smoke.K1_BM
+    stale = got.clone()
+    stale[:, last:] = got[:, last - smoke.K1_BM:last - smoke.K1_BM + length - last]
+    err, rel, ok = smoke.k1_subset_agree(ref, stale, q, k, v, rows)
+    print(f"L={length} stale last tile: max err {err:.5f}, rms err / rms {rel:.5f}")
+    assert not ok
+
+
+def test_k1_plain_budget_keeps_every_shape_of_the_light_and_middle_classes_whole():
+    """Only the heavy classes from L = 14477 on are held on a row subset:
+    every shape the serve phases ran before (up to 4 x 5975 tokens) and the
+    light end are held whole, as before."""
+    from repro_torch.launch import serve_llm
+    groups = {arch: smoke.group_lengths(smoke.llm_requests(serve_llm, C.get(arch)))
+              for arch in smoke.LLM_ARCHS + smoke.ATTN_ARCHS}
+    k1, _ = smoke.serving_shapes(C, groups)
+    subset = {shape for path, shape in k1
+              if 4 * shape[0] * 8 * shape[1] * shape[2] > smoke.K1_PLAIN_BYTES}
+    assert all(path.endswith(" heavy") for path, shape in k1 if shape in subset)
+    assert min(shape[1] for shape in subset) == 14477
+    assert not any(shape[5] or shape[6] or shape[7] for shape in subset)
+
+
+def test_serve_launches_count_layers_steps_and_classes():
+    from repro_torch.launch import quickstart
+    got = {}
+    for name in smoke.PIPELINES:
+        cfg = C.get(name)
+        got[name] = smoke.serve_launches(cfg, quickstart.REQUESTS[name])
+        if quickstart.HEAVY[name]:
+            one = smoke.serve_launches(cfg, quickstart.HEAVY[name], num_steps=1)
+            whole = smoke.serve_launches(cfg, (smoke.WHOLE_HEAVY[name],))
+            got[f"{name} heavy"] = {k: one[k] + whole[k] for k in one}
+    # the numbers chip_smoke.py's comment works out
+    assert {k: (v["flash_attention"], v["adaln_rmsnorm"]) for k, v in got.items()} == {
+        "sd3": (2400, 4900), "flux": (896, 1808), "cogvideox": (150, 306),
+        "hunyuanvideo": (416, 774), "flux heavy": (392, 791),
+        "cogvideox heavy": (325, 663), "hunyuanvideo heavy": (1088, 1677)}
+    assert all(smoke.WHOLE_HEAVY[n] in quickstart.HEAVY[n] for n in smoke.WHOLE_HEAVY)
+
+
+def test_table5_end_shapes_are_the_light_end_and_the_heavy_classes():
+    k1, k2 = smoke.table5_end_shapes(C)
+    lengths = sorted({shape[1] for shape in k1})
+    assert len(k1) == 21 and lengths[:2] == [141, 333] and lengths[-1] == 81077
+    assert (1, 7277, 7277, 48, 64, False, 0, 0.0) not in k1      # cogvideox 480 px x 2 s
+    assert {(1, s[1], s[3] * s[4]) for s in k1} == k2
+
+
+def test_kernel_records_split_the_sums_and_name_shapes_without_a_whole_plain_time():
+    def row(shape, ms, plain, path, end):
+        return {"shape": shape, "ms": ms, "plain_ms": plain, "bound_ms": ms / 2,
+                "bound_by": "operations", "library_ms": 2 * ms, "max_abs_err": 0.01,
+                "main_path": path, "table5_end": end}
+    records = {
+        "flash_attention": [row([1, 1101, 1101, 24, 64], 1.0, 10.0, "sd3", False),
+                            row([1, 141, 141, 24, 64], 0.5, 5.0, "sd3", True),
+                            row([1, 81077, 81077, 48, 64], 200.0, None, "cogvideox heavy", True)],
+        "adaln_rmsnorm": [row([1, 1101, 1536], 0.1, 1.0, "sd3", False)],
+        "ssm_scan": [row([4, 40, 854, 64, 64], 0.5, 50.0, "rwkv6-3b", False)],
+    }
+    by_path = {"sd3": {"flash_attention": 2400, "adaln_rmsnorm": 4900, "ssm_scan": 0},
+               "cogvideox heavy": {"flash_attention": 325, "adaln_rmsnorm": 663,
+                                   "ssm_scan": 0},
+               "rwkv6-3b": {"flash_attention": 0, "adaln_rmsnorm": 0, "ssm_scan": 64}}
+    k1, k2, _ = smoke.kernel_records(records, by_path)
+    assert k1["ms"] == 201.5 and k1["plain_ms"] == 15.0 and k1["library_ms"] == 403.0
+    assert k1["plain_missing"] == [[1, 81077, 81077, 48, 64]] and k1["launches"] == 2725
+    ends, others = k1["sums"]["table5_ends"], k1["sums"]["others"]
+    assert (ends["ms"], ends["plain_ms"], ends["bound_ms"]) == (200.5, 5.0, 100.25)
+    assert ends["plain_missing"] == [[1, 81077, 81077, 48, 64]]
+    assert (others["ms"], others["plain_ms"], others["plain_missing"]) == (1.0, 10.0, None)
+    assert k2["sums"]["table5_ends"]["ms"] == 0 and k2["plain_missing"] is None
