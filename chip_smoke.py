@@ -23,10 +23,12 @@ Phases:
      it), each time's share of its bound and its ratio to the library
      call; at the serving shapes K1's check must also reject the output of
      a kernel that lets the padded keys of its ragged last tile in. K1 at
-     the heavy classes' lengths (up to 81077), whose plain scores do not
-     fit, is held on a subset of its query rows against every key (the
-     first tile, a tile edge in the middle, the ragged last tile and seeded
-     tiles), its plain time taken on those rows alone;
+     the heavy classes' lengths (up to 81077) and at llama4's 8192-token
+     chunks and global layers, whose plain scores do not fit, is held on a
+     subset of its query rows against every key (the first tile, a tile
+     edge in the middle, the ragged last tile and seeded tiles; a causal
+     row with its own row of the mask), its plain time taken on those rows
+     alone;
   4. check that a two-layer cut of each diffusion pipeline (sd3, flux,
      cogvideox, hunyuanvideo) at full width agrees on the card (bf16, through
      the kernels) with the same weights on the CPU (float32, plain versions):
@@ -63,11 +65,16 @@ Phases:
      kernels) with the same weights on the CPU (float32, plain versions):
      rwkv6-3b's first 2 layers, zamba2-1.2b's 6-layer cycle, and 2 layers of
      yi-9b, yi-34b, starcoder2-15b, gemma2-9b (one local, one global layer)
-     and deepseek-moe-16b (the dense layer, then an MoE one), the window
-     models' window cut to CUT_WINDOW so that the prompt passes it and the
-     decode steps wrap their ring: the last-token logits of an 1100-token
-     prompt, the final SSM states, the K/V caches, and the logits after 4
-     decode steps;
+     and deepseek-moe-16b (the dense layer, then an MoE one), llama4-maverick
+     (a chunked and the global dense layer), internvl2-2b (behind its
+     256-token vision prefix) and musicgen-medium (on delayed codebook
+     tokens), the window models' window and llama4's chunk cut to
+     CUT_WINDOW so that the prompt passes it and the decode steps wrap their
+     ring: the last-token logits of an 1100-token prompt, the final SSM
+     states, the K/V caches, and the logits after 4 decode steps; then
+     llama4's MoE layer alone with all 128 experts, fed the same bf16
+     hidden states on both sides (``check_moe_cut``: tokens routed to
+     another expert on the card are counted and left out);
   8. serve eight requests (prompts of 256..2048 tokens, 32 new tokens, 4 per
      group) on full-width, full-depth rwkv6-3b, zamba2-1.2b, yi-9b, yi-34b
      and deepseek-moe-16b through ``repro_torch.launch.serve_llm.serve``,
@@ -76,6 +83,12 @@ Phases:
   8b. the same for starcoder2-15b and gemma2-9b on prompts of 4352..6144
      tokens, past their 4096-token window, so the window binds in prefill
      and the local rings wrap in decode;
+  8c. the same for the zoo's last three: llama4-maverick at full width cut
+     to one period of its pattern (4 layers, 128 experts) on prompts of
+     8448..10240 tokens, past its 8192-token chunk; internvl2-2b whole, text
+     prompts of 256..2048 tokens behind 256 stub patch embeddings;
+     musicgen-medium whole on delayed (4, 250..1500) codebook prompts; each
+     group printed beside its prefill and decode bounds;
   9. run the simulated H100 cluster through ``repro_torch.launch.serve.main``
      for each pipeline on the dynamic workload over 600 s, trident and B1-B6,
      at 128 chips and at 16 (with the rate scaled to the same load per
@@ -123,7 +136,7 @@ Phases:
 
 Each phase prints the seconds it took.
 
-Every counted serve run (phases 5, 5b, 5d, 8 and 8b) follows one untimed run at
+Every counted serve run (phases 5, 5b, 5d, 8, 8b and 8c) follows one untimed run at
 each of its shapes, so its stage times hold no first-call cost. K1 is also
 held, timed and counted at every LLM's causal prefill shapes (from its
 config: heads, head dim, window, softcap) and at hunyuanvideo's causal
@@ -241,7 +254,29 @@ LLM_REQUESTS, LLM_LENGTHS, LLM_MAX_NEW = 8, (256, 2048), 32
 LONG_LENGTHS = (4352, 6144)
 LLM_BATCH = 4                 # serve_llm.MAX_BATCH: requests per ServeEngine group
 CUT_PROMPT, CUT_BATCH, CUT_DECODE = 1100, 2, 4
-CUT_WINDOW = 512              # phase 7's window: CUT_PROMPT passes it, the decode wraps
+CUT_WINDOW = 512              # phase 7's window and chunk: CUT_PROMPT passes it, the decode wraps
+# phase 8c: the zoo's last three LLMs, each built and freed in turn. llama4 at
+# full width, its depth cut to one period of its pattern (LLAMA4_LAYERS: 3
+# chunked layers and 1 global; 2 MoE layers with all 128 experts and the
+# shared expert, 2 dense): 35.0 B parameters, 65.3 GiB in bf16. Its prompts
+# pass the 8192-token chunk, so the chunk binds in prefill and the chunked
+# rings wrap in decode. Each group's padded B x L (4 x 10240, 4 x 9216) has
+# 1024 as a divisor, so the MoE routes in groups of 1024 tokens
+# (``moe._group_size``); a B x L with no divisor near 1024 would route in tiny
+# groups, whose gathered expert batch holds ~T x 512 x D elements.
+ZOO_ARCHS = ("llama4-maverick-400b-a17b", "internvl2-2b", "musicgen-medium")
+LLAMA4 = ZOO_ARCHS[0]
+LLAMA4_LAYERS = 4
+LLAMA4_PROMPTS = (10240, 8448, 9472, 8960, 9216, 8704, 8832, 9000)
+MUSICGEN_FRAMES = (250, 1500)  # musicgen's prompts: 5-30 s of audio at 50 frames a second
+# phase 7's llama4 MoE layer: a router near-tie sends a token to another of
+# the 128 experts on the card than on the CPU, which changes its whole row;
+# such tokens (and those whose place in an expert's buffer moved past its
+# capacity or back) are left out, and at most this share may change expert
+# (bf16's rounding of the router's input alone flips ~0.2%:
+# tests/test_torch_smoke_checks.py)
+MOE_FLIP_LIMIT = 0.01
+CARD_GIB = 79.0               # what one H100's 80 GB leaves to PyTorch, about
 
 
 def smi() -> str:
@@ -412,8 +447,9 @@ def k1_rows(lq: int, seed: int) -> list:
     """The query rows K1's check reads where the plain version cannot hold
     every row's scores: the first K1_BM-row tile, the K1_BM rows about a tile
     edge in the middle, the last (ragged) tile and K1_SUBSET_TILES tiles drawn
-    from ``seed``. Without a mask a query row's output depends on that row and
-    every key alone, so the check is exact on the rows it reads."""
+    from ``seed``. A query row's output depends on that row, every key and its
+    own row of the mask alone, so the check is exact on the rows it reads,
+    causal or not."""
     import random
     tiles = -(-lq // K1_BM)
     mid = tiles // 2 * K1_BM
@@ -425,10 +461,12 @@ def k1_rows(lq: int, seed: int) -> list:
     return sorted(rows)
 
 
-def k1_subset_agree(ref, got, q, k, v, rows):
+def k1_subset_agree(ref, got, q, k, v, rows, mask=None):
     """``k1_agree`` of K1's output ``got`` against the plain version on the
-    query ``rows`` of a non-causal call, every key included."""
-    return k1_agree(got[:, rows], plain_by_heads(ref, q[:, rows], k, v))
+    query ``rows``, every key included: each kept row with its own row of the
+    call's (Lq, Lkv) ``mask`` (None: no mask)."""
+    return k1_agree(got[:, rows], plain_by_heads(ref, q[:, rows], k, v,
+                                                 None if mask is None else mask[rows]))
 
 
 def check_flash_attention(torch, ops, ref, fa, gen, records, main, ends):
@@ -481,10 +519,10 @@ def check_flash_attention(torch, ops, ref, fa, gen, records, main, ends):
                "softcap": cap}
         rows = want = None
         if 4 * b * 8 * lq * lkv > K1_PLAIN_BYTES:
-            if causal or window or cap:
-                raise RuntimeError(f"K1's row-subset check takes no mask or softcap: {rec}")
+            if window or cap:
+                raise RuntimeError(f"K1's row-subset check takes no window or softcap: {rec}")
             rows = k1_rows(lq, seed=lq)
-            err, rel, ok = k1_subset_agree(ref, o, q, k, v, rows)
+            err, rel, ok = k1_subset_agree(ref, o, q, k, v, rows, mask)
             rec["checked_rows"] = len(rows)
         else:
             want = plain_by_heads(ref, q, k, v, mask, cap)   # per head group: large f32 scores
@@ -518,7 +556,9 @@ def check_flash_attention(torch, ops, ref, fa, gen, records, main, ends):
                 # the plain version on the checked rows alone: no whole-shape time
                 rec["plain_ms"] = None
                 sub = (q[:, rows].contiguous(), k, v)
-                rec["plain_rows_ms"] = device_ms(plain, [sub], 1)
+                rows_mask = None if mask is None else mask[rows]
+                rec["plain_rows_ms"] = device_ms(
+                    lambda q, k, v: plain_by_heads(ref, q, k, v, rows_mask, cap), [sub], 1)
                 del sub
             rec["library_ms"] = device_ms(library, sets, reps) if library else None
             rec["main_path"] = timed[shape]
@@ -602,13 +642,25 @@ def k2_build_report(_build) -> str:
 
 def llm_k1_shapes(cfg, lengths) -> list:
     """K1's (B, Lq, Lkv, H, D, causal, window, softcap) shapes in one LLM's
-    prefill: per group of LLM_BATCH prompts padded to ``lengths``, one per
-    kind of attention layer the model has (a local layer's with its window),
-    its KV heads repeated to the query heads."""
-    kinds = dict.fromkeys(m for m, _ in cfg.layer_kinds() if m in ("attn", "attn_local"))
-    return [(LLM_BATCH, l, l, cfg.num_heads, cfg.resolved_head_dim, True,
-             cfg.window_size if m == "attn_local" else 0, cfg.attn_softcap)
-            for l in lengths for m in kinds]
+    prefill: per group of LLM_BATCH prompts padded to ``lengths`` (a vision
+    prefix included), one per kind of attention layer the model has (a
+    local layer's with its window; a chunked layer's one per distinct chunk
+    length: the full chunk and the ragged tail), its KV heads repeated to
+    the query heads."""
+    kinds = dict.fromkeys(m for m, _ in cfg.layer_kinds()
+                          if m in ("attn", "attn_local", "attn_chunked"))
+    out = []
+    for l in lengths:
+        for m in kinds:
+            if m == "attn_chunked":
+                c = cfg.chunk_size
+                calls = dict.fromkeys(min(c, l - j) for j in range(0, l, c))
+            else:
+                calls = (l,)
+            out += [(LLM_BATCH, n, n, cfg.num_heads, cfg.resolved_head_dim, True,
+                     cfg.window_size if m == "attn_local" else 0, cfg.attn_softcap)
+                    for n in calls]
+    return out
 
 
 def serving_shapes(C, llm_groups) -> tuple:
@@ -631,7 +683,7 @@ def serving_shapes(C, llm_groups) -> tuple:
             k1.append((name, (1, COND_LEN, COND_LEN, enc.num_heads, enc.resolved_head_dim,
                               True, 0, 0.0)))
     for arch, lengths in llm_groups.items():
-        k1 += [(arch, shape) for shape in llm_k1_shapes(C.get(arch), lengths)]
+        k1 += [(arch, shape) for shape in llm_k1_shapes(llm_config(C, arch), lengths)]
     for name in PIPELINES:
         cfg = C.get(name)
         for res, sec in quickstart.HEAVY[name]:
@@ -823,16 +875,40 @@ def heavy_phase(torch, ops, quickstart, Request, cfg, pipe):
     return {k: one[k] + whole[k] for k in one}, readings + got
 
 
+def llm_config(C, arch: str):
+    """The config phases 3 and 8-8c serve: llama4 cut to LLAMA4_LAYERS
+    layers, every other LLM whole."""
+    import dataclasses
+    cfg = C.get(arch)
+    return dataclasses.replace(cfg, num_layers=LLAMA4_LAYERS) if arch == LLAMA4 else cfg
+
+
 def llm_requests(serve_llm, cfg):
     """Phase 8's requests: chat and RAG prompts of 256..2048 tokens, drawn from
-    a seed; phase 8b's (LONG_ARCHS) long-document prompts of 4352..6144."""
+    a seed; phase 8b's (LONG_ARCHS) long-document prompts of 4352..6144;
+    phase 8c's: llama4's of LLAMA4_PROMPTS tokens, internvl2's text prompts of
+    256..2048 tokens behind 256 stub patch embeddings, musicgen's delayed
+    (4, L) codec prompts of MUSICGEN_FRAMES frames."""
+    import numpy as np
+    from repro_torch.launch import serve_musicgen, serve_vlm
+    if cfg.name == LLAMA4:
+        rng = np.random.default_rng(0)
+        return [serve_llm.GenRequest(rid=i, prompt=rng.integers(0, cfg.vocab_size, size=n),
+                                     max_new=LLM_MAX_NEW)
+                for i, n in enumerate(LLAMA4_PROMPTS)]
+    if cfg.modality == "vision":
+        return serve_vlm.requests_from_seed(cfg, LLM_REQUESTS, LLM_LENGTHS, LLM_MAX_NEW)
+    if cfg.modality == "audio_codec":
+        return serve_musicgen.requests_from_seed(cfg, LLM_REQUESTS, MUSICGEN_FRAMES, LLM_MAX_NEW)
     lengths = LONG_LENGTHS if cfg.name in LONG_ARCHS else LLM_LENGTHS
     return serve_llm.requests_from_seed(cfg.vocab_size, LLM_REQUESTS, lengths, LLM_MAX_NEW)
 
 
 def group_lengths(reqs) -> list:
-    """The padded prompt length of each ServeEngine group."""
+    """The padded length of each ServeEngine group as the model sees it: its
+    longest prompt, behind its vision prefix where it has one."""
     return [max(r.prompt.shape[-1] for r in reqs[i:i + LLM_BATCH])
+            + (0 if reqs[i].prefix is None else reqs[i].prefix.shape[0])
             for i in range(0, len(reqs), LLM_BATCH)]
 
 
@@ -966,12 +1042,17 @@ def check_ssm_scan(torch, ref, ss, gen, records, serving_shapes):
 
 def llm_cut_config(C, arch: str):
     """Phase 7's cut at full width: zamba2-1.2b's 6-layer cycle (5 Mamba2
-    layers, then attention), so K1 and K3 both run; every other LLM's first 2
-    layers (gemma2's local and global one, deepseek-moe's dense and first MoE
-    one), a window cut to CUT_WINDOW."""
+    layers, then attention), so K1 and K3 both run; llama4's dense half (a
+    chunked and the global layer, both dense; its MoE layer has its own cut,
+    ``check_moe_cut``); every other LLM's first 2 layers (gemma2's local and
+    global one, deepseek-moe's dense and first MoE one); a window or chunk
+    cut to CUT_WINDOW."""
     import dataclasses
     cfg = C.get(arch)
     cut = dataclasses.replace(cfg, num_layers=6 if arch == "zamba2-1.2b" else 2)
+    if arch == LLAMA4:
+        cut = dataclasses.replace(cut, layer_pattern=("attn_chunked:dense", "attn:dense"),
+                                  chunk_size=CUT_WINDOW)
     if any(m == "attn_local" for m, _ in cfg.layer_kinds()):
         cut = dataclasses.replace(cut, window_size=CUT_WINDOW)
     return cut
@@ -979,19 +1060,35 @@ def llm_cut_config(C, arch: str):
 
 def llm_cut_inputs(torch, cfg):
     """A CUT_PROMPT-token prompt per row (no multiple of any chunk or tile),
-    and the tokens of CUT_DECODE decode steps."""
+    and the tokens of CUT_DECODE decode steps. An audio model's prompt is
+    delayed (B, K, CUT_PROMPT) codes, its steps (B, K, 1) frames."""
+    from repro_torch.models import audio
     g = torch.Generator().manual_seed(7)
-    prompt = torch.randint(0, cfg.vocab_size, (CUT_BATCH, CUT_PROMPT), generator=g)
-    steps = torch.randint(0, cfg.vocab_size, (CUT_DECODE, CUT_BATCH, 1), generator=g)
+    k = (cfg.num_codebooks,) if cfg.modality == "audio_codec" else ()
+    prompt = torch.randint(0, cfg.vocab_size, (CUT_BATCH,) + k + (CUT_PROMPT,), generator=g)
+    steps = torch.randint(0, cfg.vocab_size, (CUT_DECODE, CUT_BATCH) + k + (1,), generator=g)
+    if k:
+        prompt = audio.apply_delay_pattern(prompt)
     return prompt, steps
 
 
-def llm_cut_readout(torch, model, prompt, steps) -> dict:
+def llm_cut_prefix(torch, cfg):
+    """A vision model's prefix of stub patch embeddings for the cut (None
+    for the others)."""
+    from repro_torch.models import vlm
+    if cfg.modality != "vision":
+        return None
+    return vlm.vision_stub_embeds(cfg, CUT_BATCH, torch.Generator().manual_seed(8))
+
+
+def llm_cut_readout(torch, model, prompt, steps, prefix=None) -> dict:
     """One model's last-token logits, every layer's SSM state and K/V ring
     cache after the prompt (where it has such layers), and logits after the
     decode steps, as float32 on the CPU."""
     dev = model.embed.device
-    logits, caches, offset = model.prefill(prompt.to(dev), CUT_PROMPT + CUT_DECODE)
+    tv = 0 if prefix is None else prefix.shape[1]
+    logits, caches, offset = model.prefill(prompt.to(dev), tv + CUT_PROMPT + CUT_DECODE,
+                                           None if prefix is None else prefix.to(dev))
     out = {"logits": logits.float().cpu()}
     for key, parts in (("ssm_state", ("ssm",)), ("kv_cache", ("k", "v"))):
         held = [c[p].flatten() for c in caches for p in parts if p in c]
@@ -1007,6 +1104,20 @@ def rms_rel(got, want) -> float:
     return ((got - want).pow(2).mean().sqrt() / want.pow(2).mean().sqrt()).item()
 
 
+def copy_params(torch, dst, src) -> None:
+    """Copy ``src``'s parameters into ``dst``'s (another device and dtype),
+    slice by slice along dim 0 for a large one, so that no whole float32
+    copy of an expert stack is made on either side."""
+    with torch.no_grad():
+        for pd, ps in zip(dst.parameters(), src.parameters()):
+            step = max(1, (2 ** 28) // max(1, ps[0].numel())) if ps.dim() else 1
+            if ps.dim() == 0 or ps.shape[0] <= step:
+                pd.copy_(ps.to(pd.dtype).to(pd.device))
+                continue
+            for i in range(0, ps.shape[0], step):
+                pd[i:i + step].copy_(ps[i:i + step].to(pd.dtype).to(pd.device))
+
+
 def check_llm_cut(torch, C, tf, arch: str) -> dict:
     """The cut on the card (bf16, kernels) against the same weights on the
     CPU (float32, plain versions)."""
@@ -1014,12 +1125,11 @@ def check_llm_cut(torch, C, tf, arch: str) -> dict:
     cfg = llm_cut_config(C, arch)
     gpu = tf.build(cfg, "cuda", seed=11)
     cpu = tf.Transformer(dataclasses.replace(cfg, dtype=torch.float32), "cpu").eval()
-    with torch.no_grad():
-        for pc, pg in zip(cpu.parameters(), gpu.parameters()):
-            pc.copy_(pg.float().cpu())
+    copy_params(torch, cpu, gpu)
     prompt, steps = llm_cut_inputs(torch, cfg)
-    want = llm_cut_readout(torch, cpu, prompt, steps)
-    got = llm_cut_readout(torch, gpu, prompt, steps)
+    prefix = llm_cut_prefix(torch, cfg)
+    want = llm_cut_readout(torch, cpu, prompt, steps, prefix)
+    got = llm_cut_readout(torch, gpu, prompt, steps, prefix)
     out = {k: rms_rel(got[k], want[k]) for k in want}
     for k in out:
         tol = LLM_CUT_TOL[k]
@@ -1030,20 +1140,196 @@ def check_llm_cut(torch, C, tf, arch: str) -> dict:
     return out
 
 
-def expected_launches(cfg, groups: int) -> dict:
-    """Each kernel's launches when ``groups`` prefill groups run through the
-    model: K1 once per attention layer (full or local), K3 once per SSM
+def expected_launches(cfg, lengths) -> dict:
+    """Each kernel's launches when prefill groups of the padded ``lengths``
+    (``group_lengths``) run through the model: K1 once per full or local
+    attention layer and once per chunk of a chunked one, K3 once per SSM
     layer; decode runs neither."""
     kinds = [m for m, _ in cfg.layer_kinds()]
-    return {"flash_attention": (kinds.count("attn") + kinds.count("attn_local")) * groups,
-            "adaln_rmsnorm": 0,
-            "ssm_scan": (kinds.count("mamba2") + kinds.count("rwkv6")) * groups}
+    per_group = [kinds.count("attn") + kinds.count("attn_local")
+                 + kinds.count("attn_chunked") * -(-l // cfg.chunk_size) for l in lengths]
+    return {"flash_attention": sum(per_group), "adaln_rmsnorm": 0,
+            "ssm_scan": (kinds.count("mamba2") + kinds.count("rwkv6")) * len(lengths)}
+
+
+def routes(moe, fn):
+    """Run ``fn()`` with ``moe.route`` recording each call's (expert index,
+    kept) on the CPU -> (fn's result, the records)."""
+    seen = []
+    real = moe.route
+
+    def recorded(cfg, router, xg):
+        out = real(cfg, router, xg)
+        seen.append((out[1].cpu(), out[4].cpu()))
+        return out
+    moe.route = recorded
+    try:
+        return fn(), seen
+    finally:
+        moe.route = real
+
+
+def top1_differ(got, want) -> tuple:
+    """Per token of one top-1 MoE call recorded on two sides (``routes``):
+    (its expert differs, its expert is the same but it was kept on one side
+    and dropped on the other), as flat boolean tensors in token order."""
+    (gi, gk), = got
+    (wi, wk), = want
+    expert = (gi != wi).reshape(-1)
+    return expert, (gk != wk).reshape(-1) & ~expert
+
+
+def moe_cut_config(C):
+    """Phase 7's llama4 MoE cut: one ``attn_chunked:moe`` layer at full width
+    with all 128 experts and the shared expert, its chunk cut to CUT_WINDOW."""
+    import dataclasses
+    return dataclasses.replace(C.get(LLAMA4), num_layers=1, layer_pattern=("attn_chunked:moe",),
+                               chunk_size=CUT_WINDOW)
+
+
+def host_available_bytes() -> int:
+    """MemAvailable of /proc/meminfo."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    raise RuntimeError("no MemAvailable in /proc/meminfo")
+
+
+def check_moe_cut(torch, C, tf, moe) -> dict:
+    """llama4's MoE layer on the card (bf16, kernels) against the same
+    weights on the CPU (float32 where the host has room for its 64.4 GB, else
+    bf16), both fed the same bf16 hidden states: the layer's increment
+    (output - input) at every token whose expert and kept status agree, by
+    rms(err) / rms(ref); tokens whose expert differs must be at most
+    MOE_FLIP_LIMIT of them."""
+    import dataclasses
+    cfg = moe_cut_config(C)
+    gpu = tf.AttentionLayer(cfg, "attn_chunked", "cuda", ffn="moe")
+    gpu.init_(torch.Generator(device="cuda").manual_seed(12))
+    f32_bytes = 4 * sum(p.numel() for p in gpu.parameters())
+    avail = host_available_bytes()
+    cpu_dtype = torch.float32 if avail > 1.25 * f32_bytes else torch.bfloat16
+    print(f"[7] llama4 MoE cut: {f32_bytes / 1e9:.1f} GB in float32, host has "
+          f"{avail / 1e9:.1f} GB available: CPU side in {str(cpu_dtype).split('.')[-1]}",
+          flush=True)
+    cpu = tf.AttentionLayer(dataclasses.replace(cfg, dtype=cpu_dtype), "attn_chunked", "cpu",
+                            ffn="moe")
+    copy_params(torch, cpu, gpu)
+    g = torch.Generator().manual_seed(13)
+    x = torch.randn((CUT_BATCH, CUT_PROMPT, cfg.d_model), generator=g).to(torch.bfloat16)
+    pos = torch.arange(CUT_PROMPT, dtype=torch.int32)[None].expand(CUT_BATCH, CUT_PROMPT)
+    with torch.no_grad():
+        want, want_r = routes(moe, lambda: cpu.prefill(
+            x.to(cpu_dtype), pos, cpu.init_cache(CUT_BATCH, CUT_PROMPT, "cpu"))[0].float())
+        got, got_r = routes(moe, lambda: gpu.prefill(
+            x.to(cfg.dtype).cuda(), pos.cuda(),
+            gpu.init_cache(CUT_BATCH, CUT_PROMPT, "cuda"))[0].float().cpu())
+    expert, kept = top1_differ(got_r, want_r)
+    same = ~(expert | kept)
+    inc_got = (got - x.float()).reshape(-1, cfg.d_model)[same]
+    inc_want = (want - x.float()).reshape(-1, cfg.d_model)[same]
+    out = {"cpu_dtype": str(cpu_dtype).split(".")[-1], "tokens": int(expert.numel()),
+           "expert_differs": int(expert.sum()), "kept_differs": int(kept.sum()),
+           "increment": rms_rel(inc_got, inc_want)}
+    del gpu, cpu
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not torch.isfinite(got).all() or out["expert_differs"] > MOE_FLIP_LIMIT * out["tokens"]:
+        raise RuntimeError(f"llama4 MoE cut: {out}, more than {MOE_FLIP_LIMIT:.0%} of the "
+                           "tokens changed expert, or non-finite")
+    if not math.isfinite(out["increment"]) or out["increment"] > LLM_CUT_TOL["logits"]:
+        raise RuntimeError(f"llama4 MoE cut, card vs CPU: {out} above {LLM_CUT_TOL['logits']}")
+    return out
+
+
+def decode_bound_ms(model) -> float:
+    """A decode step's least time: every weight read once at PEAK_HBM, but
+    the embedding tables, of which a step gathers a row per token (every
+    expert is read: a batch of tokens routes to most of them)."""
+    gathered = {"embed", "codebook_embed"}
+    nbytes = sum(p.numel() * p.element_size() for n, p in model.named_parameters()
+                 if n not in gathered)
+    return nbytes / PEAK_HBM * 1e3
+
+
+def prefill_bound_ms(cfg, model, length: int) -> float:
+    """A prefill group's least time (LLM_BATCH x ``length`` tokens): the
+    larger of every weight read once at PEAK_HBM and its products at
+    PEAK_BF16_TENSOR: two operations per token and weight of the layers (of
+    an MoE layer's routed experts only the ``experts_per_token`` a token
+    takes), four per query-key pair an attention layer's mask keeps and head
+    dim, and the LM head on the last token."""
+    tables = {"embed", "codebook_embed", "lm_head", "codebook_head"}
+    per_token = sum(p.numel() for n, p in model.named_parameters() if n not in tables)
+    moe_layers = sum(1 for _, ffn in cfg.layer_kinds() if ffn == "moe")
+    per_token -= (moe_layers * (cfg.num_experts - cfg.experts_per_token) * 3 * cfg.d_model
+                  * (cfg.moe_d_ff or cfg.d_ff))
+    flops = 2.0 * LLM_BATCH * (length * per_token
+                               + cfg.d_model * cfg.vocab_size * max(1, cfg.num_codebooks))
+    for mixer, _ in cfg.layer_kinds():
+        if mixer == "attn_chunked":
+            pairs = sum(i % cfg.chunk_size + 1 for i in range(length))
+        elif mixer == "attn_local":
+            pairs = sum(min(i + 1, cfg.window_size) for i in range(length))
+        elif mixer == "attn":
+            pairs = length * (length + 1) // 2
+        else:
+            continue
+        flops += 4.0 * LLM_BATCH * pairs * cfg.num_heads * cfg.resolved_head_dim
+    nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    return max(flops / PEAK_BF16_TENSOR, nbytes / PEAK_HBM) * 1e3
+
+
+def moe_groups(cfg, moe, lengths) -> list:
+    """Per prefill group of LLM_BATCH x ``lengths`` tokens: the MoE's routing
+    group size s and the bytes of its gathered expert batch xe."""
+    out = []
+    for l in lengths:
+        t = LLM_BATCH * l
+        s = moe._group_size(t)
+        xe = cfg.num_experts * (t // s) * moe.capacity(cfg, s) * cfg.d_model * 2
+        out.append({"tokens": t, "s": s, "xe_bytes": xe})
+    return out
+
+
+def prefill_transient_gib(cfg, length: int) -> float:
+    """The most memory one prefill layer holds beside the weights and the
+    caches, reckoned from the shapes (bf16, LLM_BATCH x ``length`` tokens T):
+    in an MoE layer, the residual, the norm's output, the gathered batch, the
+    experts' gate and up products and the f32 SiLU of one; then beside the
+    expert outputs the shared expert's own gate, up and f32 SiLU, the
+    combine's f32 rows; in a dense layer, its FFN; in attention, q, k, v, the
+    repeated K/V, the output and the f32 RoPE and norm copies of q."""
+    d, dh, h = cfg.d_model, cfg.resolved_head_dim, cfg.num_heads
+    t = LLM_BATCH * length
+    act = t * d * 2
+    attn = 2 * act + 4 * t * h * dh * 2 + 3 * t * h * dh * 4
+    dense = 2 * act + 2 * t * cfg.d_ff * 2 + t * cfg.d_ff * 4
+    moe_peak = 0
+    if cfg.num_experts:
+        from repro_torch.models import moe
+        s = moe._group_size(t)
+        slots = cfg.num_experts * (t // s) * moe.capacity(cfg, s)
+        f = cfg.moe_d_ff
+        experts = 3 * act + slots * d * 2 + 2 * slots * f * 2 + slots * f * 4
+        shared = 3 * act + slots * d * 2 + 2 * t * d * 4 + 2 * t * f * 2 + t * f * 4
+        moe_peak = max(experts, shared)
+    return max(attn, dense, moe_peak) / 2 ** 30
+
+
+def weights_gib(cfg) -> float:
+    """The model's bf16 weights, from a build on the meta device."""
+    from repro_torch.models import transformer
+    model = transformer.Transformer(cfg, "meta")
+    return sum(p.numel() * p.element_size() for p in model.parameters()) / 2 ** 30
 
 
 def serve_llm_phase(torch, C, tf, ops, serve_llm, arch: str, tag: str = "8") -> dict:
-    """Serve phase 8's (or 8b's) requests on the full model, built on the card
-    from a seed and freed after; returns the launches."""
-    cfg = C.get(arch)
+    """Serve phase 8's (or 8b's, 8c's) requests on the model (``llm_config``),
+    built on the card from a seed and freed after; returns the launches."""
+    from repro_torch.models import moe
+    cfg = llm_config(C, arch)
     t0 = time.perf_counter()
     resident = torch.cuda.memory_allocated() / 2 ** 30
     model = tf.build(cfg, "cuda", seed=0)
@@ -1068,21 +1354,27 @@ def serve_llm_phase(torch, C, tf, ops, serve_llm, arch: str, tag: str = "8") -> 
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
-    groups = len(group_lengths(reqs))
-    want = expected_launches(cfg, groups)
+    lengths = group_lengths(reqs)
+    groups = len(lengths)
+    want = expected_launches(cfg, lengths)
     if not all(bool(f) for f in finite) or len(finite) != groups * (1 + LLM_MAX_NEW):
         raise RuntimeError(f"{arch}: non-finite logits while serving")
+    shape = (LLM_MAX_NEW,) + ((cfg.num_codebooks,) if cfg.modality == "audio_codec" else ())
     for r in recs:
         toks = r["tokens"]
-        if len(toks) != LLM_MAX_NEW or not ((0 <= toks) & (toks < cfg.vocab_size)).all():
-            raise RuntimeError(f"{arch} request {r['rid']}: tokens {toks} not {LLM_MAX_NEW} "
+        if toks.shape != shape or not ((0 <= toks) & (toks < cfg.vocab_size)).all():
+            raise RuntimeError(f"{arch} request {r['rid']}: tokens {toks} not of shape {shape} "
                                f"in [0, {cfg.vocab_size})")
-    for i in range(0, len(recs), LLM_BATCH):
+    decode_bound = decode_bound_ms(model)
+    routing = moe_groups(cfg, moe, lengths) if cfg.num_experts else [None] * groups
+    for i, length, route in zip(range(0, len(recs), LLM_BATCH), lengths, routing):
         r = recs[i]
         print(f"[{tag}] {arch} group of {r['group_size']}, prompts "
-              f"{[x['prompt_len'] for x in recs[i:i + LLM_BATCH]]}: prefill "
-              f"{r['prefill_ms']:.1f} ms, decode {r['decode_ms_per_token']:.2f} ms/token",
-              flush=True)
+              f"{[x['prompt_len'] for x in recs[i:i + LLM_BATCH]]} (L = {length}): prefill "
+              f"{r['prefill_ms']:.1f} ms (bound {prefill_bound_ms(cfg, model, length):.1f}), "
+              f"decode {r['decode_ms_per_token']:.2f} ms/token (bound {decode_bound:.2f})"
+              + (f", MoE routing groups of s = {route['s']}, xe {route['xe_bytes'] / 2 ** 30:.2f}"
+                 " GiB" if route else ""), flush=True)
     print(f"[{tag}] {arch} served {len(recs)} requests in {wall:.2f} s, peak memory "
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB, launches {launches}",
           flush=True)
@@ -1640,6 +1932,7 @@ def main() -> int:
     import repro_torch.configs as C
     from repro_torch.core.request import Request
     from repro_torch.launch import quickstart, serve_llm
+    from repro_torch.models import moe
     from repro_torch.models import pipeline as pl
     from repro_torch.models import transformer as tf
 
@@ -1667,8 +1960,8 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     records = {}
-    llm_groups = {arch: group_lengths(llm_requests(serve_llm, C.get(arch)))
-                  for arch in LLM_ARCHS + ATTN_ARCHS}
+    llm_groups = {arch: group_lengths(llm_requests(serve_llm, llm_config(C, arch)))
+                  for arch in LLM_ARCHS + ATTN_ARCHS + ZOO_ARCHS}
     k1_shapes, k2_shapes = serving_shapes(C, llm_groups)
     k1_ends, k2_ends = table5_end_shapes(C)
     check_flash_attention(torch, ops, ref, fa, gen, records, k1_shapes, k1_ends)
@@ -1701,17 +1994,28 @@ def main() -> int:
     print("[6] ssm_scan agrees with its plain version", flush=True)
     lap("6")
 
-    for arch in LLM_ARCHS + ATTN_ARCHS:
+    for arch in LLM_ARCHS + ATTN_ARCHS + ZOO_ARCHS:
         t0 = time.perf_counter()
         cut = check_llm_cut(torch, C, tf, arch)
         print(f"[7] {arch} cut, card vs CPU, rms err / rms: {json.dumps(cut)} "
               f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    t0 = time.perf_counter()
+    cut = check_moe_cut(torch, C, tf, moe)
+    print(f"[7] {LLAMA4} MoE layer, card vs CPU: {json.dumps(cut)} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
     lap("7")
 
     for arch in LLM_ARCHS + ATTN_ARCHS:
         by_path[arch] = serve_llm_phase(torch, C, tf, ops, serve_llm, arch,
                                         "8b" if arch in LONG_ARCHS else "8")
     lap("8-8b")
+    cfg = llm_config(C, LLAMA4)
+    print(f"[8c] {LLAMA4} cut to {LLAMA4_LAYERS} layers: {weights_gib(cfg):.1f} GiB of weights, "
+          f"largest prefill transient {prefill_transient_gib(cfg, max(LLAMA4_PROMPTS)):.1f} GiB "
+          f"(reckoned), of the card's ~{CARD_GIB:.0f}", flush=True)
+    for arch in ZOO_ARCHS:
+        by_path[arch] = serve_llm_phase(torch, C, tf, ops, serve_llm, arch, "8c")
+    lap("8c")
 
     cluster_phase()
     lap("9")

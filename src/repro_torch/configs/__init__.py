@@ -2,17 +2,16 @@
 
 ``get(id)`` returns the full published config; ``get_smoke`` a reduced
 same-family variant that runs on a CPU in seconds. Counterpart of
-``repro/configs/__init__.py``; ported so far: the four diffusion pipelines
-(``sd3``, ``flux``, ``cogvideox``, ``hunyuanvideo``) and seven LLMs:
-``zamba2-1.2b``, ``rwkv6-3b``, ``yi-9b``, ``yi-34b``, ``starcoder2-15b``,
-``gemma2-9b`` and ``deepseek-moe-16b``.
+``repro/configs/__init__.py``, with the same ids: the four diffusion
+pipelines (``sd3``, ``flux``, ``cogvideox``, ``hunyuanvideo``) and the ten
+LLMs of the zoo.
 """
 from __future__ import annotations
 
 import importlib
 
 ARCH_IDS = ("zamba2-1.2b", "rwkv6-3b", "yi-9b", "yi-34b", "starcoder2-15b", "gemma2-9b",
-            "deepseek-moe-16b")
+            "deepseek-moe-16b", "llama4-maverick-400b-a17b", "internvl2-2b", "musicgen-medium")
 
 PIPELINE_IDS = ("sd3", "flux", "cogvideox", "hunyuanvideo")
 
@@ -24,6 +23,9 @@ _MODULES = {
     "starcoder2-15b": "starcoder2_15b",
     "gemma2-9b": "gemma2_9b",
     "deepseek-moe-16b": "deepseek_moe_16b",
+    "llama4-maverick-400b-a17b": "llama4_maverick",
+    "internvl2-2b": "internvl2_2b",
+    "musicgen-medium": "musicgen_medium",
     "sd3": "sd3",
     "flux": "flux",
     "cogvideox": "cogvideox",

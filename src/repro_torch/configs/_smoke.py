@@ -13,8 +13,9 @@ from repro_torch.models.common import ModelConfig
 
 
 def make_smoke(cfg: ModelConfig, **overrides) -> ModelConfig:
-    """d_model 128, 4 heads of 32, <= 4 experts, f32; 2 layers, or one cycle
-    of a longer pattern (up to 8); same layer family/pattern."""
+    """d_model 128, 4 heads of 32, <= 4 experts, <= 8 vision tokens of <= 64
+    dims, f32; 2 layers, or one cycle of a longer pattern (up to 8); same
+    layer family/pattern."""
     heads = min(cfg.num_heads, 4)
     kv = max(1, min(cfg.num_kv_heads, heads))
     while heads % kv:
@@ -33,6 +34,8 @@ def make_smoke(cfg: ModelConfig, **overrides) -> ModelConfig:
         moe_d_ff=min(cfg.moe_d_ff, 64) if cfg.moe_d_ff else 0,
         ssm_state_dim=min(cfg.ssm_state_dim, 16),
         ssm_heads=4 if cfg.resolved_ssm_heads else 0,
+        vision_tokens=min(cfg.vision_tokens, 8),
+        vision_embed_dim=min(cfg.vision_embed_dim, 64) if cfg.vision_embed_dim else 0,
         dtype=torch.float32,
         name=cfg.name + "-smoke",
     )

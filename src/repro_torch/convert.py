@@ -96,9 +96,12 @@ def from_jax(cfg: PipelineConfig, np_params: Mapping[str, Dict], device=None) ->
 
 def from_jax_lm(cfg: ModelConfig, np_params: Mapping[str, Any], device=None) -> Transformer:
     """The port's ``Transformer`` from the reference's ``transformer.init``
-    pytree (numpy arrays), layers unstacked in scan-plan order."""
+    pytree (numpy arrays), layers unstacked in scan-plan order (with each
+    layer's ``q_norm``/``k_norm`` where the config has ``qk_norm``), and the
+    front ends' ``vision_proj``, ``codebook_embed`` and ``codebook_head``."""
     model = Transformer(cfg, _device.resolve(device)).eval()
-    for name in ("embed", "final_norm", "lm_head"):
+    for name in ("embed", "final_norm", "lm_head", "vision_proj", "codebook_embed",
+                 "codebook_head"):
         if hasattr(model, name):
             _assign(getattr(model, name), np_params[name], name)
     _assign_layers(model.layers, _plan_layers(cfg, np_params["blocks"]), "lm")

@@ -9,11 +9,17 @@ from a seed; requests are grouped into left-padded batches of ``max_batch``.
       --lengths 17,40
 
 ``--lengths LO,HI`` draws prompt lengths from [LO, HI] (default 4,16 at
-``--smoke``, 256,2048 otherwise), e.g. past a model's sliding window.
+``--smoke``, 256,2048 otherwise), e.g. past a model's sliding window or
+llama4's attention chunk; ``--layers N`` cuts the depth to N layers
+(llama4-maverick's 48 layers do not fit one card; its 4-layer cut does).
+The CLI serves text models; musicgen-medium has ``launch/serve_musicgen.py``
+and internvl2-2b ``launch/serve_vlm.py``. ``serve`` itself also takes
+musicgen's (K, L) codebook prompts.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 from typing import Dict, List, Optional, Sequence
 
@@ -34,7 +40,8 @@ def serve(cfg: ModelConfig, requests: Sequence[GenRequest], device=None, seed: i
     """Serve ``requests`` on one chip: ``device``, ``cuda`` by default.
 
     The requests are served in groups of ``MAX_BATCH``, in the order given,
-    with caches for the longest prompt plus the most new tokens asked for.
+    with caches for the longest prompt (and its vision prefix) plus the most
+    new tokens asked for.
     Returns one record per request, in the same order: its generated tokens,
     its group's prefill ms and decode ms per token (CUDA events on the card)
     and the group's size. ``model`` may carry an already built model;
@@ -43,7 +50,7 @@ def serve(cfg: ModelConfig, requests: Sequence[GenRequest], device=None, seed: i
     dev = _device.resolve(device)
     if model is None:
         model = transformer.build(cfg, dev, seed)
-    max_len = max(r.prompt.shape[-1] + r.max_new for r in requests)
+    max_len = max(r.prompt.shape[-1] + r.max_new for r in requests) + _prefix_len(requests)
     eng = ServeEngine(model, max_batch=MAX_BATCH, max_len=max_len)
     for r in requests:
         eng.submit(r)
@@ -54,20 +61,28 @@ def serve(cfg: ModelConfig, requests: Sequence[GenRequest], device=None, seed: i
              "group_size": r.group_size} for r in requests]
 
 
+def _prefix_len(requests: Sequence[GenRequest]) -> int:
+    return 0 if requests[0].prefix is None else requests[0].prefix.shape[0]
+
+
 @torch.no_grad()
 def warm(model: transformer.Transformer, requests: Sequence[GenRequest]) -> None:
     """One prefill and one decode step, untimed, at each padded group shape
     ``serve`` will give ``requests`` (groups of ``MAX_BATCH`` in order, caches
     of the same length), so that the first calls at each shape fall outside
-    the prefill and decode times it reports."""
+    the prefill and decode times it reports. Codebook prompts (K, L) are
+    warmed as (B, K, L)."""
     dev = model.embed.device
-    max_len = max(r.prompt.shape[-1] + r.max_new for r in requests)
+    max_len = max(r.prompt.shape[-1] + r.max_new for r in requests) + _prefix_len(requests)
     for i in range(0, len(requests), MAX_BATCH):
         group = requests[i:i + MAX_BATCH]
         length = max(r.prompt.shape[-1] for r in group)
-        tokens = torch.zeros((len(group), length), dtype=torch.long, device=dev)
-        logits, caches, offset = model.prefill(tokens, max_len)
-        model.decode_step(tokens[:, -1:], caches, offset)
+        shape = (len(group),) + group[0].prompt.shape[:-1] + (length,)
+        tokens = torch.zeros(shape, dtype=torch.long, device=dev)
+        prefix = (None if group[0].prefix is None else
+                  torch.zeros((len(group),) + group[0].prefix.shape, device=dev))
+        logits, caches, offset = model.prefill(tokens, max_len, prefix)
+        model.decode_step(tokens[..., -1:], caches, offset)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
 
@@ -103,8 +118,15 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     ap.add_argument("--max-new", type=int, default=8)
     ap.add_argument("--lengths", type=_lengths, default=None,
                     help="LO,HI: prompt lengths uniform in [LO, HI]")
+    ap.add_argument("--layers", type=int, default=None, help="cut the depth to this many layers")
     args = ap.parse_args(argv)
     cfg = C.get_smoke(args.arch) if args.smoke else C.get(args.arch)
+    if cfg.modality != "text":
+        launcher = {"audio_codec": "serve_musicgen", "vision": "serve_vlm"}[cfg.modality]
+        raise SystemExit(f"{args.arch}: a {cfg.modality} model; serve it with "
+                         f"python -m repro_torch.launch.{launcher}")
+    if args.layers:
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
     lengths = args.lengths or ((4, 16) if args.smoke else (256, 2048))
     reqs = requests_from_seed(cfg.vocab_size, args.requests, lengths, args.max_new)
     model = transformer.build(cfg, args.device)

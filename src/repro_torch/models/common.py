@@ -70,13 +70,19 @@ class ModelConfig:
     ssm_expand: int = 2
     ssm_conv: int = 4
 
+    # modality front ends (stubs, as in the reference)
     modality: str = "text"           # text | vision | audio_codec
+    num_codebooks: int = 0           # musicgen
+    vision_tokens: int = 0           # number of prefix embedding tokens
+    vision_embed_dim: int = 0
 
     # numerics
     norm_eps: float = 1e-6
     dtype: Any = torch.bfloat16
     tie_embeddings: bool = False
     embed_scale: bool = False        # multiply embeddings by sqrt(d_model) (gemma)
+    attn_block_threshold: int = 4096  # CPU prefill: online-softmax blocked attention
+    attn_block_size: int = 512        # ... with this KV block size
     source: str = ""
 
     @property
@@ -138,22 +144,36 @@ def param(shape: Sequence[int], dtype, device) -> torch.nn.Parameter:
                               requires_grad=False)
 
 
+DRAW_SLICE_ELEMENTS = 2 ** 30   # a larger tensor is drawn in slices along dim 0
+
+
 @torch.no_grad()
 def dense_init_(w: torch.Tensor, gen: torch.Generator, scale: float = 1.0,
                 fan_in: Optional[int] = None) -> None:
     """Truncated-normal fan-in init in place; fan_in defaults to shape[0]
-    (the reference's rule, which for an HWIO kernel is its height)."""
+    (the reference's rule, which for an HWIO kernel is its height). A
+    tensor of more than DRAW_SLICE_ELEMENTS elements (llama4's expert
+    stacks) is drawn in slices along dim 0, each through one float32
+    buffer of at most that many elements; fan_in stays the whole tensor's."""
     fan = w.shape[0] if fan_in is None else fan_in
     std = scale / math.sqrt(max(1, fan))
-    t = torch.empty(w.shape, dtype=torch.float32, device=w.device)
-    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
-    w.copy_(t * std)
+    if w.numel() <= DRAW_SLICE_ELEMENTS:
+        t = torch.empty(w.shape, dtype=torch.float32, device=w.device)
+        torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
+        w.copy_(t.mul_(std))
+        return
+    rows = max(1, DRAW_SLICE_ELEMENTS // (w.numel() // w.shape[0]))
+    for i in range(0, w.shape[0], rows):
+        part = w[i:i + rows]
+        t = torch.empty(part.shape, dtype=torch.float32, device=w.device)
+        torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
+        part.copy_(t.mul_(std))
 
 
 @torch.no_grad()
 def embed_init_(w: torch.Tensor, gen: torch.Generator) -> None:
     t = torch.randn(w.shape, dtype=torch.float32, device=w.device, generator=gen)
-    w.copy_(t * 0.02)
+    w.copy_(t.mul_(0.02))
 
 
 # ---------------------------------------------------------------------------
@@ -226,6 +246,51 @@ def repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
         return x
     b, l, h, d = x.shape
     return x[:, :, :, None, :].expand(b, l, h, n_rep, d).reshape(b, l, h * n_rep, d)
+
+
+def _block_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, kind: str, window: int,
+                chunk: int) -> Optional[torch.Tensor]:
+    if kind == ATTN_BIDIR:
+        return None
+    q = q_pos[:, None]
+    k = k_pos[None, :]
+    m = k <= q
+    if kind == ATTN_LOCAL:
+        m &= k > q - window
+    elif kind == ATTN_CHUNKED:
+        m &= (k // chunk) == (q // chunk)
+    return m
+
+
+def attention_blocked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_pos: torch.Tensor,
+                      kv_pos: torch.Tensor, kind: str, window: int = 0, chunk: int = 0,
+                      attn_softcap_val: float = 0.0, block: int = 512) -> torch.Tensor:
+    """Online-softmax attention over blocks of ``block`` keys, in f32: never
+    builds the (Lq, Lkv) scores. The reference's CPU prefill at long L; the
+    port's prefill on the card goes through K1 instead."""
+    b, lq, h, d = q.shape
+    lkv = k.shape[1]
+    assert lkv % block == 0, (lkv, block)
+    scale = 1.0 / math.sqrt(d)
+    qf = q.float()
+    m = torch.full((b, h, lq), -1e30, dtype=torch.float32, device=q.device)
+    l = torch.zeros((b, h, lq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, h, lq, d), dtype=torch.float32, device=q.device)
+    for j in range(0, lkv, block):
+        s = torch.einsum("bqhd,bkhd->bhqk", qf, k[:, j:j + block].float()) * scale
+        s = softcap(s, attn_softcap_val)
+        mask = _block_mask(q_pos, kv_pos[j:j + block], kind, window, chunk)
+        if mask is not None:
+            s = torch.where(mask[None, None], s, torch.full_like(s, -1e30))
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.exp(s - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l = alpha * l + p.sum(-1)
+        acc = acc * alpha[..., None] + torch.einsum("bhqk,bkhd->bhqd", p,
+                                                    v[:, j:j + block].float())
+        m = m_new
+    l = torch.where(l == 0.0, torch.ones_like(l), l)
+    return (acc / l[..., None]).transpose(1, 2).to(v.dtype)
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: Optional[torch.Tensor],

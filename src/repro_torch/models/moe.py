@@ -105,7 +105,9 @@ def moe_ffn(cfg: ModelConfig, layer: MoE, x: torch.Tensor) -> Tuple[torch.Tensor
     gg = torch.bmm(xe, layer.w_gate)
     uu = torch.bmm(xe, layer.w_up)
     h = F.silu(gg.float()).to(xe.dtype) * uu
+    del gg, uu, xe, rows            # free the expert batch before the combine (llama4's prefill)
     ye = torch.bmm(h, layer.w_down).view(e, g_n, cap, d)          # (E, G, C, D)
+    del h
 
     # combine: each token's kept slots, weighted by its gates in x's dtype
     yk = ye[idx, gi, torch.clamp(pos, max=cap - 1)]              # (G, S, k, D)

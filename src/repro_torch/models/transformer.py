@@ -4,26 +4,30 @@ Counterpart of ``repro/models/transformer.py``. One ``nn.Module`` per layer,
 in the order the reference executes them (``ModelConfig.plan_kinds``: scan
 block by block, repeat by repeat, cycle position by cycle position), where
 the reference stacks each cycle position's layers under
-``params["blocks"][bi][pi]`` with a leading repeat dimension. Three modes
+``params["blocks"][bi][pi]`` with a leading repeat dimension. Four modes
 share the layer code, as in the reference:
 
-  * ``run_layers``  — the encoder pass, no cache (``"train"`` mode; the
-                      encoder's layers only, as training is not ported);
+  * ``run_layers``  — the encoder pass, no cache;
+  * ``forward``     — the reference's cache-less pass: logits at every
+                      position and the MoE layers' aux loss;
   * ``prefill``     — the full prompt, filling one cache entry per layer;
   * ``decode_step`` — ONE token per sequence against the caches.
 
-Ported layer kinds: ``attn_bidir:dense`` (encoder), ``attn:dense`` (causal,
-with a ring KV cache), ``attn_local:dense`` (sliding window, its ring cache
-``min(window, max_len)`` long), ``attn:moe`` (``models/moe.py``),
-``mamba2:none`` and ``rwkv6:none``. The chunked mask (``attn_chunked``),
-``qk_norm`` models' other needs and the vision/audio front ends are not
-ported. The port runs eagerly and updates the KV ring cache in place at
-decode.
+Layer kinds: ``attn_bidir:dense`` (encoder), ``attn:dense`` (causal, with a
+ring KV cache), ``attn_local:dense`` (sliding window, its ring cache
+``min(window, max_len)`` long), ``attn_chunked`` (llama4's chunked-local
+attention: prefill runs K1 once per chunk, the ring cache is
+``min(chunk, max_len)`` long and decode attends within the new token's
+chunk), each with a dense or an MoE FFN (``models/moe.py``), ``qk_norm``,
+``mamba2:none`` and ``rwkv6:none``. The front ends: text tokens (B, L),
+musicgen's codebook tokens (B, K, L) and a vision prefix of patch
+embeddings projected by ``vision_proj``. The port runs eagerly and updates
+the KV ring cache in place at decode.
 """
 from __future__ import annotations
 
 import math
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -31,12 +35,15 @@ from torch import nn
 from repro_torch import device as _device
 from repro_torch.kernels import ops
 from repro_torch.models import common, moe, ssm
-from repro_torch.models.common import (ATTN, ATTN_BIDIR, ATTN_CHUNKED, ATTN_LOCAL, FFN_DENSE,
-                                       FFN_MOE, MAMBA2, RWKV6, ModelConfig, param)
+from repro_torch.models.common import (ATTN, ATTN_BIDIR, ATTN_CHUNKED, ATTN_KINDS, ATTN_LOCAL,
+                                       FFN_DENSE, FFN_MOE, MAMBA2, RWKV6, SSM_KINDS, ModelConfig,
+                                       param)
 
 FFN_NONE = "none"
 PORTED_KINDS = ((ATTN_BIDIR, FFN_DENSE), (ATTN, FFN_DENSE), (ATTN_LOCAL, FFN_DENSE),
-                (ATTN, FFN_MOE), (MAMBA2, FFN_NONE), (RWKV6, FFN_NONE))
+                (ATTN, FFN_MOE), (ATTN_CHUNKED, FFN_DENSE), (ATTN_CHUNKED, FFN_MOE),
+                (MAMBA2, FFN_NONE), (RWKV6, FFN_NONE))
+MODALITIES = ("text", "vision", "audio_codec")
 
 
 def cache_capacity(cfg: ModelConfig, mixer: str, max_len: int) -> int:
@@ -70,10 +77,14 @@ def _fill_cache_from_prefill(k: torch.Tensor, v: torch.Tensor, positions: torch.
 
 class AttentionLayer(nn.Module):
     """Pre-norm attention, then a pre-norm FFN: ``attn_bidir`` (the
-    encoder's, plain attention), ``attn`` (causal) or ``attn_local`` (causal
-    within the last ``window_size`` keys); the causal kinds prefill through
-    ``ops.flash_attention`` and decode against the ring cache. The FFN is a
-    SwiGLU (``dense``) or the MoE (``moe``, its weights under ``moe.``)."""
+    encoder's, plain attention), ``attn`` (causal), ``attn_local`` (causal
+    within the last ``window_size`` keys) or ``attn_chunked`` (causal within
+    the query's chunk of ``chunk_size`` positions); the causal kinds prefill
+    through ``ops.flash_attention`` and decode against the ring cache. On
+    the CPU, at L >= ``attn_block_threshold`` and L a multiple of
+    ``attn_block_size``, every kind runs ``common.attention_blocked``, where
+    the reference does. The FFN is a SwiGLU (``dense``) or the MoE (``moe``,
+    its weights under ``moe.``)."""
 
     def __init__(self, cfg: ModelConfig, mixer: str, device=None, ffn: str = FFN_DENSE):
         super().__init__()
@@ -136,11 +147,36 @@ class AttentionLayer(nn.Module):
         k = common.apply_rope(k, positions, cfg.rope_theta)
         return q, k, v
 
-    def _ffn(self, x: torch.Tensor) -> torch.Tensor:
+    def _ffn(self, x: torch.Tensor):
+        """-> (x + FFN(x), the MoE's load-balance aux loss or 0)."""
         h = common.rms_norm(x, self.ln2, self.cfg.norm_eps)
         if self.ffn == FFN_MOE:
-            return x + moe.moe_ffn(self.cfg, self.moe, h)[0]   # serving drops the aux loss
-        return x + common.swiglu(h, self.w_gate, self.w_up, self.w_down)
+            out, aux = moe.moe_ffn(self.cfg, self.moe, h)
+            return x + out, aux
+        return x + common.swiglu(h, self.w_gate, self.w_up, self.w_down), 0.0
+
+    def _attention(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   pos: torch.Tensor) -> torch.Tensor:
+        """q, k, v: (B, L, H, Dh), KV heads repeated; pos: (L,)."""
+        cfg = self.cfg
+        l = q.shape[1]
+        if (q.device.type == "cpu" and l >= cfg.attn_block_threshold
+                and l % cfg.attn_block_size == 0):
+            return common.attention_blocked(q, k, v, pos, pos, self.mixer, cfg.window_size,
+                                            cfg.chunk_size, cfg.attn_softcap,
+                                            cfg.attn_block_size)
+        if self.mixer == ATTN_BIDIR:
+            mask = common.make_attention_mask(pos, pos, ATTN_BIDIR)
+            return common.attention(q, k, v, mask, cfg.attn_softcap)
+        if self.mixer == ATTN_CHUNKED and l > cfg.chunk_size:
+            # within a chunk the mask is causal and no key crosses a chunk
+            # edge: one causal K1 call per chunk, on views along L
+            c = cfg.chunk_size
+            return torch.cat([ops.flash_attention(q[:, j:j + c], k[:, j:j + c], v[:, j:j + c],
+                                                  causal=True, softcap=cfg.attn_softcap)
+                              for j in range(0, l, c)], dim=1)
+        window = cfg.window_size if self.mixer == ATTN_LOCAL else 0
+        return ops.flash_attention(q, k, v, causal=True, window=window, softcap=cfg.attn_softcap)
 
     def _attend(self, x: torch.Tensor, positions: torch.Tensor):
         """Attention over the in-flight sequence only -> (x + out, (k, v))."""
@@ -150,23 +186,17 @@ class AttentionLayer(nn.Module):
         q, k, v = self._project_qkv(h, positions)
         n_rep = cfg.num_heads // cfg.num_kv_heads
         kr, vr = common.repeat_kv(k, n_rep), common.repeat_kv(v, n_rep)
-        if self.mixer == ATTN_BIDIR:
-            pos = positions[0]
-            mask = common.make_attention_mask(pos, pos, ATTN_BIDIR)
-            out = common.attention(q, kr, vr, mask, cfg.attn_softcap)
-        else:
-            window = cfg.window_size if self.mixer == ATTN_LOCAL else 0
-            out = ops.flash_attention(q, kr, vr, causal=True, window=window,
-                                      softcap=cfg.attn_softcap)
+        out = self._attention(q, kr, vr, positions[0])
         out = out.reshape(b, l, cfg.num_heads * cfg.resolved_head_dim)
         return x + out @ self.wo, (k, v)
 
-    def forward(self, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, positions: torch.Tensor):
+        """The cache-less pass -> (x, aux)."""
         return self._ffn(self._attend(x, positions)[0])
 
     def prefill(self, x: torch.Tensor, positions: torch.Tensor, cache: dict):
         x, (k, v) = self._attend(x, positions)
-        return self._ffn(x), _fill_cache_from_prefill(k, v, positions, cache["k"].shape[1])
+        return self._ffn(x)[0], _fill_cache_from_prefill(k, v, positions, cache["k"].shape[1])
 
     def decode(self, x: torch.Tensor, offset: int, cache: dict):
         """One token against the ring cache; ``offset`` = tokens already
@@ -184,6 +214,8 @@ class AttentionLayer(nn.Module):
         valid = (pos >= 0) & (pos <= offset)
         if self.mixer == ATTN_LOCAL:
             valid &= pos > offset - cfg.window_size
+        elif self.mixer == ATTN_CHUNKED:
+            valid &= pos // cfg.chunk_size == offset // cfg.chunk_size
         n_rep = cfg.num_heads // cfg.num_kv_heads
         kr, vr = common.repeat_kv(k, n_rep), common.repeat_kv(v, n_rep)
         scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), kr.float()) / math.sqrt(q.shape[-1])
@@ -192,7 +224,7 @@ class AttentionLayer(nn.Module):
         probs = torch.softmax(scores, dim=-1)
         out = torch.einsum("bhqk,bkhd->bqhd", probs.to(vr.dtype), vr)
         out = out.reshape(b, l, cfg.num_heads * cfg.resolved_head_dim)
-        return self._ffn(x + out @ self.wo), {"k": k, "v": v, "pos": pos}
+        return self._ffn(x + out @ self.wo)[0], {"k": k, "v": v, "pos": pos}
 
 
 class Mamba2Layer(nn.Module):
@@ -211,6 +243,10 @@ class Mamba2Layer(nn.Module):
 
     def init_cache(self, batch: int, max_len: int, device=None) -> dict:
         return self.mamba.init_state(batch, device)
+
+    def forward(self, x: torch.Tensor, positions: torch.Tensor):
+        """The cache-less pass from a zero state -> (x, 0)."""
+        return self.prefill(x, positions, self.init_cache(x.shape[0], 0, x.device))[0], 0.0
 
     def prefill(self, x: torch.Tensor, positions: torch.Tensor, cache: dict):
         out, new = self.mamba(common.rms_norm(x, self.ln1, self.cfg.norm_eps), cache)
@@ -240,6 +276,10 @@ class RWKV6Layer(nn.Module):
     def init_cache(self, batch: int, max_len: int, device=None) -> dict:
         return self.rwkv.init_state(batch, device)
 
+    def forward(self, x: torch.Tensor, positions: torch.Tensor):
+        """The cache-less pass from a zero state -> (x, 0)."""
+        return self.prefill(x, positions, self.init_cache(x.shape[0], 0, x.device))[0], 0.0
+
     def _run(self, x: torch.Tensor, state: dict, decode: bool):
         eps = self.cfg.norm_eps
         out, s_new, shift_tm = self.rwkv.timemix(common.rms_norm(x, self.ln1, eps), state, decode)
@@ -256,9 +296,11 @@ class RWKV6Layer(nn.Module):
 
 
 def _make_layer(cfg: ModelConfig, kind: Tuple[str, str], device) -> nn.Module:
-    if kind not in PORTED_KINDS:
-        raise NotImplementedError(f"layer kind {kind} is not ported yet")
     mixer = kind[0]
+    if mixer not in ATTN_KINDS + SSM_KINDS:
+        raise ValueError(f"unknown mixer {mixer!r}")
+    if kind not in PORTED_KINDS:
+        raise NotImplementedError(f"layer kind {kind} is in no config of the zoo")
     if mixer == MAMBA2:
         return Mamba2Layer(cfg, device)
     if mixer == RWKV6:
@@ -268,16 +310,27 @@ def _make_layer(cfg: ModelConfig, kind: Tuple[str, str], device) -> nn.Module:
 
 class Transformer(nn.Module):
     """Token embedding, the layers in execution order, the final norm and
-    the LM head. The encoder never reads ``lm_head``; it is kept because the
-    profiler counts it, as the reference's does."""
+    the LM head; a vision model's ``vision_proj`` (patch embeddings into the
+    model), an audio model's per-codebook ``codebook_embed`` and
+    ``codebook_head``. The encoder never reads ``lm_head``, nor the audio
+    model ``embed`` and ``lm_head``; they are kept because the profiler
+    counts them, as the reference's does."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
+        if cfg.modality not in MODALITIES:
+            raise ValueError(f"unknown modality {cfg.modality!r}")
         self.cfg = cfg
-        self.embed = param((cfg.vocab_size, cfg.d_model), cfg.dtype, device)
-        self.final_norm = param((cfg.d_model,), torch.float32, device)
+        d, dt = cfg.d_model, cfg.dtype
+        self.embed = param((cfg.vocab_size, d), dt, device)
+        self.final_norm = param((d,), torch.float32, device)
         if not cfg.tie_embeddings:
-            self.lm_head = param((cfg.d_model, cfg.vocab_size), cfg.dtype, device)
+            self.lm_head = param((d, cfg.vocab_size), dt, device)
+        if cfg.modality == "vision":
+            self.vision_proj = param((cfg.vision_embed_dim, d), dt, device)
+        if cfg.modality == "audio_codec":
+            self.codebook_embed = param((cfg.num_codebooks, cfg.vocab_size, d), dt, device)
+            self.codebook_head = param((cfg.num_codebooks, d, cfg.vocab_size), dt, device)
         self.layers = nn.ModuleList(_make_layer(cfg, kind, device) for kind in cfg.plan_kinds())
 
     @torch.no_grad()
@@ -286,33 +339,70 @@ class Transformer(nn.Module):
         self.final_norm.zero_()
         if not self.cfg.tie_embeddings:
             common.dense_init_(self.lm_head, gen)
+        if self.cfg.modality == "vision":
+            common.dense_init_(self.vision_proj, gen)
+        if self.cfg.modality == "audio_codec":
+            common.embed_init_(self.codebook_embed, gen)
+            common.dense_init_(self.codebook_head, gen)
         for layer in self.layers:
             layer.init_(gen)
 
-    def embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
-        """tokens: (B, L) integer -> (B, L, D). Text only."""
-        if self.cfg.modality != "text":
-            raise NotImplementedError(f"the {self.cfg.modality} front end is not ported yet")
-        x = self.embed[tokens]
-        if self.cfg.embed_scale:
-            x = x * (self.cfg.d_model ** 0.5)
+    def embed_tokens(self, tokens: torch.Tensor,
+                     prefix_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """tokens: (B, L) integer, or (B, K, L) codebook tokens for
+        ``audio_codec`` (their K embeddings summed per frame) -> (B, L, D).
+        ``prefix_embeds`` (B, Tv, Dv): stub patch embeddings, projected by
+        ``vision_proj`` in the model's dtype and put in front of the text."""
+        cfg = self.cfg
+        if cfg.modality == "audio_codec" and tokens.dim() == 3:
+            x = torch.stack([self.codebook_embed[i][tokens[:, i]]
+                             for i in range(tokens.shape[1])], dim=1).sum(1)
+        else:
+            x = self.embed[tokens]
+        if cfg.embed_scale:
+            x = x * (cfg.d_model ** 0.5)
+        if prefix_embeds is not None:
+            pe = prefix_embeds.to(cfg.dtype)
+            if hasattr(self, "vision_proj"):
+                pe = pe @ self.vision_proj
+            x = torch.cat([pe, x], dim=1)
         return x
 
-    def run_layers(self, x: torch.Tensor) -> torch.Tensor:
-        """The ``"train"``-mode pass over every layer, positions 0..L-1."""
+    def _positions(self, x: torch.Tensor) -> torch.Tensor:
         b, l, _ = x.shape
-        positions = torch.arange(l, dtype=torch.int32, device=x.device)[None].expand(b, l)
+        return torch.arange(l, dtype=torch.int32, device=x.device)[None].expand(b, l)
+
+    def run_layers(self, x: torch.Tensor) -> torch.Tensor:
+        """The cache-less pass over every layer, positions 0..L-1."""
+        positions = self._positions(x)
         for layer in self.layers:
-            x = layer(x, positions)
+            x = layer(x, positions)[0]
         return x
 
     def apply_final_norm(self, x: torch.Tensor) -> torch.Tensor:
         return common.rms_norm(x, self.final_norm, self.cfg.norm_eps)
 
     def lm_logits(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, L, V) f32 logits, or (B, L, K, V) through ``codebook_head``."""
         x = self.apply_final_norm(x)
-        logits = x @ (self.embed.T if self.cfg.tie_embeddings else self.lm_head)
+        if self.cfg.modality == "audio_codec":
+            logits = torch.einsum("bld,kdv->blkv", x, self.codebook_head)
+        else:
+            logits = x @ (self.embed.T if self.cfg.tie_embeddings else self.lm_head)
         return common.softcap(logits.float(), self.cfg.logit_softcap)
+
+    @torch.no_grad()
+    def forward(self, tokens: torch.Tensor, prefix_embeds: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The reference's cache-less pass: (logits at every position, the
+        MoE layers' summed load-balance aux loss, f32)."""
+        x = self.embed_tokens(tokens, prefix_embeds)
+        positions = self._positions(x)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for layer in self.layers:
+            x, a = layer(x, positions)
+            aux = aux + a
+        return self.lm_logits(x), aux
 
     def init_cache(self, batch: int, max_len: int) -> List[dict]:
         """One cache entry per layer, in execution order."""
@@ -320,12 +410,15 @@ class Transformer(nn.Module):
         return [layer.init_cache(batch, max_len, dev) for layer in self.layers]
 
     @torch.no_grad()
-    def prefill(self, tokens: torch.Tensor, max_len: int) -> Tuple[torch.Tensor, List[dict], int]:
-        """Returns (last-token logits (B, 1, V) f32, caches, offset). Caches
-        are sized for ``max_len``."""
-        x = self.embed_tokens(tokens)
+    def prefill(self, tokens: torch.Tensor, max_len: int,
+                prefix_embeds: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, List[dict], int]:
+        """Returns (last-token logits (B, 1, V) [(B, 1, K, V) audio] f32,
+        caches, offset = prefix + prompt length). Caches are sized for
+        ``max_len``."""
+        x = self.embed_tokens(tokens, prefix_embeds)
         b, l, _ = x.shape
-        positions = torch.arange(l, dtype=torch.int32, device=x.device)[None].expand(b, l)
+        positions = self._positions(x)
         caches = []
         for layer, cache in zip(self.layers, self.init_cache(b, max_len)):
             x, cache = layer.prefill(x, positions, cache)
@@ -335,7 +428,8 @@ class Transformer(nn.Module):
     @torch.no_grad()
     def decode_step(self, tokens: torch.Tensor, caches: List[dict], offset: int
                     ) -> Tuple[torch.Tensor, List[dict]]:
-        """ONE new token per sequence, tokens (B, 1), against the caches."""
+        """ONE new token per sequence, tokens (B, 1) [(B, K, 1) audio],
+        against the caches."""
         x = self.embed_tokens(tokens)
         new = []
         for layer, cache in zip(self.layers, caches):

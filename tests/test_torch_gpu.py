@@ -154,6 +154,29 @@ def test_flash_attention_kernel_reads_strided_views_of_a_fused_projection(cuda, 
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("l,chunk,d", [(333, 128, 128), (300, 100, 64), (129, 128, 128),
+                                       (100, 128, 64)])
+def test_chunked_attention_runs_k1_once_per_chunk_on_views_on_card(cuda, l, chunk, d):
+    """llama4's chunked prefill: one causal K1 call per chunk, each on views
+    of q, k and v along L (no copies), equals the plain attention under the
+    chunked mask."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import transformer
+    cfg = dataclasses.replace(get_smoke("llama4-maverick-400b-a17b"), chunk_size=chunk,
+                              dtype=torch.bfloat16)
+    layer = transformer.AttentionLayer(cfg, "attn_chunked", cuda)
+    q, k, v = (t.to(cuda, torch.bfloat16) for t in _qkv(l, 2, l, l, 4, d))
+    pos = torch.arange(l, device=cuda)
+    ops.reset_launches()
+    got = layer._attention(q, k, v, pos)
+    assert ops.LAUNCHES["flash_attention"] == -(-l // chunk)
+    mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] // chunk == pos[:, None] // chunk)
+    _assert_attention_close(got, ref.attention_ref(q, k, v, mask))
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("d", [1536, 3072])         # sd3's DiT width; the other three's
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, BF16_TOL)])
 @pytest.mark.parametrize("b,l", [(2, 333), (3, 1101), (4, 77), (5, 9)])

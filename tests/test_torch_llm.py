@@ -75,7 +75,7 @@ def _assert_caches_close(got, want):
 
 
 def test_lm_configs_carry_the_same_values():
-    assert set(TC.ARCH_IDS) <= set(JC.ARCH_IDS)
+    assert set(TC.ARCH_IDS) == set(JC.ARCH_IDS)
     for arch in TC.ARCH_IDS:
         for getter in ("get", "get_smoke"):
             j, t = getattr(JC, getter)(arch), getattr(TC, getter)(arch)
@@ -168,9 +168,15 @@ def test_serve_llm_records_one_row_per_request():
 
 
 def test_transformer_refuses_what_is_not_ported():
-    cfg = dataclasses.replace(TC.get_smoke("rwkv6-3b"), layer_pattern=("attn_chunked:dense",))
-    with pytest.raises(NotImplementedError, match="attn_chunked"):
-        ttf.Transformer(cfg, "cpu")
-    m = ttf.Transformer(dataclasses.replace(TC.get_smoke("rwkv6-3b"), modality="vision"), "cpu")
-    with pytest.raises(NotImplementedError, match="vision"):
-        m.embed_tokens(torch.zeros((1, 2), dtype=torch.long))
+    """Every kind of the zoo is ported; an unknown mixer raises, as the
+    reference's init does, and so does an unknown modality."""
+    bad = dataclasses.replace(TC.get_smoke("rwkv6-3b"), layer_pattern=("attn_sparse:dense",))
+    with pytest.raises(ValueError, match="attn_sparse"):
+        jtf.init(dataclasses.replace(JC.get_smoke("rwkv6-3b"), layer_pattern=bad.layer_pattern),
+                 jax.random.PRNGKey(0))
+    with pytest.raises(ValueError, match="attn_sparse"):
+        ttf.Transformer(bad, "cpu")
+    with pytest.raises(ValueError, match="video"):
+        ttf.Transformer(dataclasses.replace(TC.get_smoke("rwkv6-3b"), modality="video"), "cpu")
+    for arch in TC.ARCH_IDS:
+        ttf.Transformer(TC.get_smoke(arch), "meta")

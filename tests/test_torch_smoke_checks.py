@@ -641,14 +641,15 @@ def test_serving_shapes_come_from_each_llm_config():
     ("deepseek-moe-16b", 28, 0), ("starcoder2-15b", 40, 0), ("gemma2-9b", 42, 0),
 ])
 def test_expected_llm_launches_count_local_layers(arch, k1, k3):
-    for groups in (1, 2):
-        assert smoke.expected_launches(C.get(arch), groups) == {
+    for lengths in ([1810], [1810, 854]):
+        groups = len(lengths)
+        assert smoke.expected_launches(C.get(arch), lengths) == {
             "flash_attention": k1 * groups, "adaln_rmsnorm": 0, "ssm_scan": k3 * groups}
 
 
 def test_phase_8_launches_add_up_to_the_prediction():
     served = smoke.LLM_ARCHS + smoke.ATTN_ARCHS
-    k1 = sum(smoke.expected_launches(C.get(a), 2)["flash_attention"] for a in served)
+    k1 = sum(smoke.expected_launches(C.get(a), [1810, 854])["flash_attention"] for a in served)
     assert k1 == 12 + 436 and set(smoke.LONG_ARCHS) <= set(served)
 
 
@@ -814,3 +815,174 @@ def test_kernel_records_split_the_sums_and_name_shapes_without_a_whole_plain_tim
     assert ends["plain_missing"] == [[1, 81077, 81077, 48, 64]]
     assert (others["ms"], others["plain_ms"], others["plain_missing"]) == (1.0, 10.0, None)
     assert k2["sums"]["table5_ends"]["ms"] == 0 and k2["plain_missing"] is None
+
+
+def _zoo_groups():
+    from repro_torch.launch import serve_llm
+    return {arch: smoke.group_lengths(smoke.llm_requests(serve_llm, smoke.llm_config(C, arch)))
+            for arch in smoke.ZOO_ARCHS}
+
+
+def test_phase_8c_requests_pass_llama4s_chunk_and_route_in_groups_of_1024():
+    """llama4's prompts pass the 8192-token chunk (each group's K1 runs a
+    full chunk and a ragged tail per chunked layer); each group's 4 x L
+    tokens split into MoE routing groups of 1024, so the gathered expert
+    batch stays near 1.4 T x D (a length with no divisor near 1024 would
+    route in tiny groups: 4 x 9001 has none in [512, 1024])."""
+    from repro_torch.launch import serve_llm
+    from repro_torch.models import moe
+    cfg = smoke.llm_config(C, smoke.LLAMA4)
+    assert cfg.num_layers == 4 and [m for m, _ in cfg.layer_kinds()].count("attn_chunked") == 3
+    reqs = smoke.llm_requests(serve_llm, cfg)
+    assert min(r.prompt.shape[0] for r in reqs) > cfg.chunk_size
+    assert all(8448 <= r.prompt.shape[0] <= 10240 for r in reqs)
+    groups = smoke.group_lengths(reqs)
+    assert groups == [10240, 9216]
+    for g in smoke.moe_groups(cfg, moe, groups):
+        assert g["s"] == 1024
+        assert g["xe_bytes"] < 1.5 * g["tokens"] * cfg.d_model * 2
+    tiny = smoke.moe_groups(cfg, moe, [9001])[0]
+    assert tiny["s"] < 512 and tiny["xe_bytes"] > 100 * tiny["tokens"] * cfg.d_model * 2
+
+
+def test_phase_8c_k1_launches_follow_the_chunks():
+    """One K1 launch per chunk per chunked layer plus one per global layer
+    per group for llama4 (3 x 2 + 1 = 7 a group past one chunk), one per
+    layer per group for internvl2 (24) and musicgen (48)."""
+    groups = _zoo_groups()
+    got = {arch: smoke.expected_launches(smoke.llm_config(C, arch), lengths)
+           for arch, lengths in groups.items()}
+    assert {a: g["flash_attention"] for a, g in got.items()} == {
+        smoke.LLAMA4: 14, "internvl2-2b": 48, "musicgen-medium": 96}
+    assert all(g["ssm_scan"] == 0 == g["adaln_rmsnorm"] for g in got.values())
+    one_chunk = smoke.expected_launches(smoke.llm_config(C, smoke.LLAMA4), [8192, 100])
+    assert one_chunk["flash_attention"] == 8
+    # internvl2's groups count the 256 patch embeddings
+    assert all(l > 256 for l in groups["internvl2-2b"])
+
+
+def test_phase_8c_k1_shapes_split_llama4_into_its_chunks():
+    groups = _zoo_groups()
+    k1, _ = smoke.serving_shapes(C, groups)
+    llama = [shape for path, shape in k1 if path == smoke.LLAMA4]
+    assert llama == [(4, 8192, 8192, 40, 128, True, 0, 0.0), (4, 2048, 2048, 40, 128, True, 0, 0.0),
+                     (4, 10240, 10240, 40, 128, True, 0, 0.0),
+                     (4, 8192, 8192, 40, 128, True, 0, 0.0), (4, 1024, 1024, 40, 128, True, 0, 0.0),
+                     (4, 9216, 9216, 40, 128, True, 0, 0.0)]
+    vlm = [shape for path, shape in k1 if path == "internvl2-2b"]
+    assert [s[3:5] for s in vlm] == [(16, 128)] * 2 and all(s[1] > 256 for s in vlm)
+    music = [shape for path, shape in k1 if path == "musicgen-medium"]
+    assert [s[3:5] for s in music] == [(24, 64)] * 2
+    assert all(250 <= s[1] <= 1500 for s in music)
+    # llama4's full chunk and global layers pass the plain version's budget:
+    # they are held on a row subset, causal
+    subset = [s for s in llama if 4 * s[0] * 8 * s[1] * s[2] > smoke.K1_PLAIN_BYTES]
+    assert {s[1] for s in subset} == {8192, 9216, 10240} and all(s[5] for s in subset)
+
+
+@pytest.mark.parametrize("length", [300, 1101])
+def test_k1_causal_row_subset_check_passes_rounding_and_rejects_a_wrong_last_tile(length):
+    """The row-subset check on a causal call: each kept row is held with its
+    own row of the causal mask, against every key. It passes the plain
+    version and K1's rounding (the CPU model, causal) and rejects a stand-in
+    whose ragged last query tile holds the tile before's outputs; it also
+    rejects a kernel that dropped the mask (the non-causal outputs)."""
+    from repro_torch.kernels import ops
+    q, k, v = _k1_inputs(length)
+    rows = smoke.k1_rows(length, seed=length)
+    mask = ops.attention_mask(length, length, 0, q.device)
+    plain = ref.attention_ref(q, k, v, mask)
+    assert smoke.k1_subset_agree(ref, plain, q, k, v, rows, mask)[2]
+    got = k1_rounding_model(q, k, v, causal=True)
+    err, rel, ok = smoke.k1_subset_agree(ref, got, q, k, v, rows, mask)
+    print(f"causal L={length} rounding on {len(rows)} rows: max err {err:.5f}, rms {rel:.5f}")
+    assert ok
+    last = (length - 1) // smoke.K1_BM * smoke.K1_BM
+    stale = got.clone()
+    stale[:, last:] = got[:, last - smoke.K1_BM:last - smoke.K1_BM + length - last]
+    err, rel, ok = smoke.k1_subset_agree(ref, stale, q, k, v, rows, mask)
+    print(f"causal L={length} stale last tile: max err {err:.5f}, rms {rel:.5f}")
+    assert not ok
+    assert not smoke.k1_subset_agree(ref, ref.attention_ref(q, k, v), q, k, v, rows, mask)[2]
+
+
+def test_top1_flip_counter_and_the_rate_bf16_gives_at_llama4s_width():
+    """``top1_differ`` splits the tokens whose expert differs from those
+    kept on one side only; ``routes`` records each call of ``moe.route``.
+    At llama4's width (5120 into 128 experts, its router's init), rounding
+    the router's input to bf16 moves ~0.2% of 2200 tokens to another expert,
+    and noise of 1% of its rms ~1.2%: MOE_FLIP_LIMIT sits between."""
+    from repro_torch.models import common, moe
+    idx = torch.tensor([[[0], [1], [2], [3]]])
+    keep = torch.tensor([[[True], [True], [False], [True]]])
+    expert, kept = smoke.top1_differ(
+        [(torch.tensor([[[0], [2], [2], [3]]]), torch.tensor([[[True], [True], [True], [True]]]))],
+        [(idx, keep)])
+    assert expert.tolist() == [False, True, False, False]
+    assert kept.tolist() == [False, False, True, False]
+    cfg = dataclasses.replace(C.get_smoke(smoke.LLAMA4), capacity_factor=1.25)
+    layer = moe.MoE(cfg, "cpu")
+    layer.init_(torch.Generator().manual_seed(0))
+    x = torch.randn((2, 6, cfg.d_model), generator=torch.Generator().manual_seed(1))
+    out, seen = smoke.routes(moe, lambda: moe.moe_ffn(cfg, layer, x))
+    assert moe.route is not None and len(seen) == 1 and seen[0][0].shape == (1, 12, 1)
+    torch.testing.assert_close(out[0], moe.moe_ffn(cfg, layer, x)[0])
+    g = torch.Generator().manual_seed(0)
+    router = torch.empty((5120, 128))
+    common.dense_init_(router, g)
+    h = torch.randn((2200, 5120), generator=g)
+    top = torch.softmax(h @ router, -1).argmax(-1)
+    bf16 = (torch.softmax(h.bfloat16().float() @ router, -1).argmax(-1) != top).float().mean()
+    noisy = h + 0.01 * torch.randn(h.shape, generator=g)
+    far = (torch.softmax(noisy @ router, -1).argmax(-1) != top).float().mean()
+    print(f"top-1 flips at 5120 x 128: bf16 input {bf16.item():.4f}, 1% noise {far.item():.4f}")
+    assert bf16 < smoke.MOE_FLIP_LIMIT / 2 < smoke.MOE_FLIP_LIMIT < far
+
+
+def test_llama4_phase_8c_memory_fits_the_card():
+    """llama4's 4-layer cut: 35.0 B parameters, 65.3 GiB of bf16 weights;
+    with the largest prefill transient (4 x 10240 tokens through an MoE
+    layer) it stays under the card's 79 GiB."""
+    cfg = smoke.llm_config(C, smoke.LLAMA4)
+    weights = smoke.weights_gib(cfg)
+    transient = smoke.prefill_transient_gib(cfg, max(smoke.LLAMA4_PROMPTS))
+    print(f"llama4 cut: weights {weights:.2f} GiB, transient {transient:.2f} GiB")
+    assert 65.0 < weights < 65.6
+    assert 3 < transient and weights + transient < smoke.CARD_GIB
+    # the MoE cut of phase 7: one layer, its experts and attention, 32.6 GB in
+    # bf16 (65.2 GB in float32 on the CPU side)
+    moe_cfg = smoke.moe_cut_config(C)
+    assert moe_cfg.num_experts == 128 and moe_cfg.num_shared_experts == 1
+    from repro_torch.models import transformer
+    layer = transformer.AttentionLayer(moe_cfg, "attn_chunked", "meta", ffn="moe")
+    assert abs(sum(p.numel() for p in layer.parameters()) * 2 / 1e9 - 32.6) < 0.1
+
+
+def test_llm_bounds_count_the_weights_a_token_meets_and_the_masked_pairs():
+    """Phase 8's bounds: a decode step reads every weight but the embedding
+    tables once; a prefill group's products count each weight a token
+    meets twice (llama4's 127 untaken experts a layer not at all) and four
+    per kept query-key pair and head dim (llama4's chunks keep fewer)."""
+    from repro_torch.models import transformer
+    yi = C.get("yi-9b")
+    model = transformer.Transformer(yi, "meta")
+    nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    assert smoke.decode_bound_ms(model) == pytest.approx(
+        (nbytes - yi.vocab_size * yi.d_model * 2) / smoke.PEAK_HBM * 1e3)
+    l, b = 1810, smoke.LLM_BATCH
+    layer = sum(p.numel() for p in model.layers[0].parameters()) + yi.d_model / yi.num_layers
+    flops = (2.0 * b * (l * layer * yi.num_layers + yi.d_model * yi.vocab_size)
+             + 4.0 * b * l * (l + 1) // 2 * yi.num_heads * yi.resolved_head_dim * yi.num_layers)
+    assert smoke.prefill_bound_ms(yi, model, l) == pytest.approx(
+        flops / smoke.PEAK_BF16_TENSOR * 1e3)
+    cfg = smoke.llm_config(C, smoke.LLAMA4)
+    llama = transformer.Transformer(cfg, "meta")
+    l = 10240
+    taken = (sum(p.numel() for p in llama.layers.parameters()) + cfg.d_model
+             - 2 * 127 * 3 * cfg.d_model * cfg.moe_d_ff)
+    pairs = 3 * (8192 * 8193 // 2 + 2048 * 2049 // 2) + l * (l + 1) // 2
+    flops = (2.0 * b * (l * taken + cfg.d_model * cfg.vocab_size)
+             + 4.0 * b * pairs * cfg.num_heads * cfg.resolved_head_dim)
+    assert smoke.prefill_bound_ms(cfg, llama, l) == pytest.approx(
+        flops / smoke.PEAK_BF16_TENSOR * 1e3)
+    assert smoke.decode_bound_ms(llama) == pytest.approx(20.3, abs=0.05)
