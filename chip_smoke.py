@@ -89,6 +89,24 @@ Phases:
      prompts of 256..2048 tokens behind 256 stub patch embeddings;
      musicgen-medium whole on delayed (4, 250..1500) codebook prompts; each
      group printed beside its prefill and decode bounds;
+  13. (run after 8c, once every served model is freed) training on the
+     card, through the reference's training math, which reaches no kernel:
+     (a) ``launch/train_llm --preset 100m --steps 200`` (float32), whose
+     loss must fall and whose checkpoint (parameters, AdamW moments, step)
+     must restore bit-equal into a state drawn from another seed; (b) one
+     forward and backward of full-width 2-layer cuts of yi-9b, deepseek-moe-16b
+     (its dense layer, then an MoE one of 64 experts) and rwkv6-3b in bf16 on
+     the card against the same weights in float32 on the CPU, on one
+     256-token batch: the loss, the mean NLL, the aux loss and every
+     parameter's gradient within ``TRAIN_CUT_TOL`` (tokens whose set of
+     experts differs, or that one side kept and the other dropped, are left
+     out of both losses); (c) full-width trainers through
+     ``launch/train.main``, 10 steps of 4 x 2048 tokens each: yi-9b cut to
+     8 layers, deepseek-moe-16b cut to 4 (one dense, three MoE) and
+     rwkv6-3b whole, each with its memory reckoned before the card holds
+     it, finite loss and gradient norm at every step, step 10 at the end,
+     and ms a step, tokens/s, peak GiB and the step's bound printed. The
+     phase must add no K1 and no K3 launch;
   9. run the simulated H100 cluster through ``repro_torch.launch.serve.main``
      for each pipeline on the dynamic workload over 600 s, trident and B1-B6,
      at 128 chips and at 16 (with the rate scaled to the same load per
@@ -156,6 +174,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -1169,14 +1188,18 @@ def routes(moe, fn):
         moe.route = real
 
 
-def top1_differ(got, want) -> tuple:
-    """Per token of one top-1 MoE call recorded on two sides (``routes``):
-    (its expert differs, its expert is the same but it was kept on one side
-    and dropped on the other), as flat boolean tensors in token order."""
-    (gi, gk), = got
-    (wi, wk), = want
-    expert = (gi != wi).reshape(-1)
-    return expert, (gk != wk).reshape(-1) & ~expert
+def topk_differ(got, want) -> tuple:
+    """Per token of MoE calls recorded on two sides (``routes``): (its set of
+    experts differs in some call, its experts are the same but one of them
+    kept it on one side and dropped it on the other), flat boolean tensors
+    in token order."""
+    expert = kept = False
+    for (gi, gk), (wi, wk) in zip(got, want):
+        gi, go = gi.sort(-1)
+        wi, wo = wi.sort(-1)
+        expert = expert | (gi != wi).any(-1).reshape(-1)
+        kept = kept | (gk.gather(-1, go) != wk.gather(-1, wo)).any(-1).reshape(-1)
+    return expert, kept & ~expert
 
 
 def moe_cut_config(C):
@@ -1225,7 +1248,7 @@ def check_moe_cut(torch, C, tf, moe) -> dict:
         got, got_r = routes(moe, lambda: gpu.prefill(
             x.to(cfg.dtype).cuda(), pos.cuda(),
             gpu.init_cache(CUT_BATCH, CUT_PROMPT, "cuda"))[0].float().cpu())
-    expert, kept = top1_differ(got_r, want_r)
+    expert, kept = topk_differ(got_r, want_r)
     same = ~(expert | kept)
     inc_got = (got - x.float()).reshape(-1, cfg.d_model)[same]
     inc_want = (want - x.float()).reshape(-1, cfg.d_model)[same]
@@ -1253,30 +1276,42 @@ def decode_bound_ms(model) -> float:
     return nbytes / PEAK_HBM * 1e3
 
 
+def weights_per_token(cfg, model, skip) -> int:
+    """The weights one token meets: every parameter not named in ``skip``,
+    and of an MoE layer's routed experts only the ``experts_per_token`` it
+    takes."""
+    n = sum(p.numel() for name, p in model.named_parameters() if name not in skip)
+    moe_layers = sum(1 for _, ffn in cfg.layer_kinds() if ffn == "moe")
+    return n - (moe_layers * (cfg.num_experts - cfg.experts_per_token) * 3 * cfg.d_model
+                * (cfg.moe_d_ff or cfg.d_ff))
+
+
+def attention_pairs(cfg, length: int) -> int:
+    """The query-key pairs the attention layers' masks keep over one
+    sequence of ``length`` tokens, summed over the layers."""
+    total = 0
+    for mixer, _ in cfg.layer_kinds():
+        if mixer == "attn_chunked":
+            total += sum(i % cfg.chunk_size + 1 for i in range(length))
+        elif mixer == "attn_local":
+            total += sum(min(i + 1, cfg.window_size) for i in range(length))
+        elif mixer == "attn":
+            total += length * (length + 1) // 2
+    return total
+
+
 def prefill_bound_ms(cfg, model, length: int) -> float:
     """A prefill group's least time (LLM_BATCH x ``length`` tokens): the
     larger of every weight read once at PEAK_HBM and its products at
-    PEAK_BF16_TENSOR: two operations per token and weight of the layers (of
-    an MoE layer's routed experts only the ``experts_per_token`` a token
-    takes), four per query-key pair an attention layer's mask keeps and head
-    dim, and the LM head on the last token."""
-    tables = {"embed", "codebook_embed", "lm_head", "codebook_head"}
-    per_token = sum(p.numel() for n, p in model.named_parameters() if n not in tables)
-    moe_layers = sum(1 for _, ffn in cfg.layer_kinds() if ffn == "moe")
-    per_token -= (moe_layers * (cfg.num_experts - cfg.experts_per_token) * 3 * cfg.d_model
-                  * (cfg.moe_d_ff or cfg.d_ff))
+    PEAK_BF16_TENSOR: two operations per token and weight of the layers
+    (``weights_per_token``), four per query-key pair an attention layer's
+    mask keeps and head dim, and the LM head on the last token."""
+    per_token = weights_per_token(cfg, model, {"embed", "codebook_embed", "lm_head",
+                                               "codebook_head"})
     flops = 2.0 * LLM_BATCH * (length * per_token
                                + cfg.d_model * cfg.vocab_size * max(1, cfg.num_codebooks))
-    for mixer, _ in cfg.layer_kinds():
-        if mixer == "attn_chunked":
-            pairs = sum(i % cfg.chunk_size + 1 for i in range(length))
-        elif mixer == "attn_local":
-            pairs = sum(min(i + 1, cfg.window_size) for i in range(length))
-        elif mixer == "attn":
-            pairs = length * (length + 1) // 2
-        else:
-            continue
-        flops += 4.0 * LLM_BATCH * pairs * cfg.num_heads * cfg.resolved_head_dim
+    flops += (4.0 * LLM_BATCH * attention_pairs(cfg, length) * cfg.num_heads
+              * cfg.resolved_head_dim)
     nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
     return max(flops / PEAK_BF16_TENSOR, nbytes / PEAK_HBM) * 1e3
 
@@ -1860,6 +1895,246 @@ def figures_phase() -> list:
     return out
 
 
+# phase 13: training on the card. (a) the example's 100m preset; (b) one
+# forward and backward of full-width 2-layer cuts, bf16 on the card against
+# the same weights in float32 on the CPU; (c) full-width trainers through
+# launch/train.py. The training pass runs the reference's training math, no
+# kernel: the phase must add no K1 and no K3 launch.
+TRAIN_EXAMPLE_ARGV = ("--preset", "100m", "--steps", "200")
+TRAIN_CUT_ARCHS = ("yi-9b", "deepseek-moe-16b", "rwkv6-3b")
+TRAIN_CUT_TOKENS = 256              # (b)'s batch: one sequence (phase 7's 1100, cut for time)
+# (b)'s readings, bf16 card vs f32 CPU: the loss, the mean NLL and the aux
+# loss by |err| / |ref|, each parameter's gradient by rms(err) / rms(ref)
+# (the worst one is read). The loss's limit sits below the deepseek cut's
+# aux / loss (~9e-4), so a loss without its aux term fails
+# (tests/test_torch_smoke_checks.py holds the limits against bf16 rounding
+# and faults on the CPU)
+TRAIN_CUT_TOL = {"loss": 4e-4, "nll": 4e-4, "aux": 4e-2, "grad": 4e-2}
+# a bf16 router near-tie among deepseek's 64 experts (top-6) changes a
+# token's set of experts on the card; such tokens are left out of (b)'s
+# losses, and at most this share of them may change
+TRAIN_FLIP_LIMIT = 0.1
+# (c): (arch, layers: None = whole) at TRAIN_BATCH x TRAIN_SEQ tokens a step
+TRAINERS = (("yi-9b", 8), ("deepseek-moe-16b", 4), ("rwkv6-3b", None))
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 10, 4, 2048
+
+
+def train_cut_side(loop, moe, model, batch) -> tuple:
+    """One side's training pass of the cut, with the MoE's routing recorded
+    -> (per-token NLL (B, L), aux, records)."""
+    (logits, aux), seen = routes(moe, lambda: model.train_forward(batch["tokens"]))
+    return loop.token_nll(model.cfg, logits, batch["labels"]), aux, seen
+
+
+def train_cut_backward(torch, model, nll, aux, keep) -> dict:
+    """The loss over the kept tokens (``loop.loss_fn``'s mean NLL plus aux)
+    backward -> its readings: loss, nll, aux (floats) and every parameter's
+    gradient (float32 on the CPU; zeros where none)."""
+    mean = nll.reshape(-1)[keep.to(nll.device)].mean()
+    loss = mean + aux
+    loss.backward()
+    grads = {n: (torch.zeros(p.shape) if p.grad is None else p.grad.float().cpu())
+             for n, p in model.named_parameters()}
+    return {"loss": loss.item(), "nll": mean.item(), "aux": aux.detach().item(), "grads": grads}
+
+
+def train_cut_readings(got: dict, want: dict) -> dict:
+    """(b)'s readings of one side against the other (``train_cut_backward``'s
+    dicts): the loss's, NLL's and aux's |err| / |ref| (|err| where the ref
+    is 0), and the worst parameter's gradient rms(err) / rms(ref) with its
+    name (0 where both are zero, inf where only the ref is)."""
+    def rel(g, w):
+        return abs(g - w) / abs(w) if w else abs(g)
+    grad = {}
+    for n, w in want["grads"].items():
+        ref_rms = w.pow(2).mean().sqrt().item()
+        err = (got["grads"][n] - w).pow(2).mean().sqrt().item()
+        r = err / ref_rms if ref_rms else (0.0 if err == 0 else math.inf)
+        grad[n] = r if math.isfinite(r) else math.inf
+    name = max(grad, key=grad.get)
+    return {"loss": rel(got["loss"], want["loss"]), "nll": rel(got["nll"], want["nll"]),
+            "aux": rel(got["aux"], want["aux"]), "grad": grad[name], "worst_grad": name}
+
+
+def check_train_readings(what: str, readings: dict) -> None:
+    for key, tol in TRAIN_CUT_TOL.items():
+        if not math.isfinite(readings[key]) or readings[key] > tol:
+            raise RuntimeError(f"{what}, card vs CPU: {key} = {readings[key]:.3g} above {tol} "
+                               f"({readings})")
+
+
+def check_train_cut(torch, C, tf, loop, moe, pipeline, arch: str) -> dict:
+    """The 2-layer cut's training pass and backward on the card (bf16)
+    against the same weights on the CPU (float32) on one batch of
+    TRAIN_CUT_TOKENS tokens; tokens whose experts differ (or that one side
+    kept and the other dropped) are left out of both losses."""
+    import dataclasses
+    cfg = dataclasses.replace(C.get(arch), num_layers=2)
+    gpu = tf.build(cfg, "cuda", seed=14).requires_grad_(True)
+    cpu = tf.Transformer(dataclasses.replace(cfg, dtype=torch.float32), "cpu")
+    copy_params(torch, cpu, gpu)
+    cpu.requires_grad_(True)
+    batch = pipeline.synthetic_batch(cfg, pipeline.DataConfig(1, TRAIN_CUT_TOKENS), 0)
+    sides = {}
+    for name, model in (("card", gpu), ("cpu", cpu)):
+        sides[name] = train_cut_side(loop, moe, model,
+                                     pipeline.to_tensors(batch, model.embed.device))
+    if sides["card"][2]:
+        expert, kept = topk_differ(sides["card"][2], sides["cpu"][2])
+    else:
+        expert = kept = torch.zeros(TRAIN_CUT_TOKENS, dtype=torch.bool)
+    keep = ~(expert | kept)
+    got = train_cut_backward(torch, gpu, sides["card"][0], sides["card"][1], keep)
+    want = train_cut_backward(torch, cpu, sides["cpu"][0], sides["cpu"][1], keep)
+    out = {"tokens": TRAIN_CUT_TOKENS, "expert_differs": int(expert.sum()),
+           "kept_differs": int(kept.sum()), "loss_card": got["loss"], "loss_cpu": want["loss"],
+           **train_cut_readings(got, want)}
+    del gpu, cpu, sides, got, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    if out["expert_differs"] > TRAIN_FLIP_LIMIT * out["tokens"]:
+        raise RuntimeError(f"{arch} train cut: {out}: too many tokens changed expert")
+    check_train_readings(f"{arch} train cut", out)
+    return out
+
+
+def check_restore(torch, saved: dict, restored: dict) -> None:
+    """Every tensor of a checkpointed train state (``checkpoint.state_tree``:
+    parameters, moments, step) comes back bit-equal, and the moments the
+    run wrote are not all zero."""
+    if set(saved) != set(restored):
+        raise RuntimeError(f"restore: keys differ: {sorted(set(saved) ^ set(restored))}")
+    for k, t in saved.items():
+        r = restored[k]
+        if r.dtype != t.dtype or r.shape != t.shape or not torch.equal(r.cpu(), t.cpu()):
+            raise RuntimeError(f"restore: {k} differs from what was saved")
+    if not any(bool(t.abs().sum() > 0) for k, t in saved.items() if k.startswith("nu.")):
+        raise RuntimeError("restore: the saved state has no moments")
+
+
+def train_memory_gib(cfg, batch: int, seq: int) -> dict:
+    """A trainer's memory, reckoned from the shapes before the card holds
+    it: its weights (bf16, norms f32), grads of the same dtypes, f32 AdamW
+    moments, the layers' inputs that remat keeps, and the largest transient:
+    three f32 tensors of the plain attention's scores (B x H x L x L: the
+    scores, their softmax and its gradient) or of the logits (B x L x V:
+    logits, log-softmax and its gradient)."""
+    from repro_torch.models import transformer
+    model = transformer.Transformer(cfg, "meta")
+    n = sum(p.numel() for p in model.parameters())
+    w = sum(p.numel() * p.element_size() for p in model.parameters())
+    t = batch * seq
+    attn = any(m.startswith("attn") for m, _ in cfg.layer_kinds())
+    scores = batch * cfg.num_heads * seq * seq * 4 if attn and seq < cfg.attn_block_threshold else 0
+    logits = t * cfg.vocab_size * max(1, cfg.num_codebooks) * 4
+    out = {"params": n, "weights": w, "grads": w, "moments": 8 * n,
+           "remat_saved": cfg.num_layers * t * cfg.d_model * 2,
+           "transient": 3 * max(scores, logits)}
+    gib = {k: v / 2 ** 30 for k, v in out.items() if k != "params"}
+    gib["total"] = sum(gib.values())
+    return {"params": n, **gib}
+
+
+def train_bound_ms(cfg, batch: int, seq: int) -> tuple:
+    """A train step's least time -> (ms, bound_by): the larger of its
+    products at PEAK_BF16_TENSOR, 6 per token and weight a token meets (the
+    LM head included, the embedding gather and an MoE layer's experts the
+    token does not take left out) plus 12 per query-key pair the mask keeps
+    and head dim in each attention layer (forward 4, backward 8), and its
+    bytes at PEAK_HBM: the weights read, the grads written and read, the
+    moments read and written and the weights written once each."""
+    from repro_torch.models import transformer
+    model = transformer.Transformer(cfg, "meta")
+    flops = (6.0 * batch * seq * weights_per_token(cfg, model, {"embed", "codebook_embed"})
+             + 12.0 * batch * attention_pairs(cfg, seq) * cfg.num_heads * cfg.resolved_head_dim)
+    n = sum(p.numel() for p in model.parameters())
+    w = sum(p.numel() * p.element_size() for p in model.parameters())
+    nbytes = 3 * w + 16 * n
+    ops_ms, bytes_ms = flops / PEAK_BF16_TENSOR * 1e3, nbytes / PEAK_HBM * 1e3
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes")
+
+
+def train_phase(torch, C, tf, ops, moe) -> list:
+    """Phase 13 -> one record per trainer of (c)."""
+    import dataclasses
+    from repro_torch.data import pipeline
+    from repro_torch.launch import train, train_llm
+    from repro_torch.training import checkpoint, loop
+    before = dict(ops.LAUNCHES)
+    print(f"[13] launches before: {json.dumps(before)}", flush=True)
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "train_llm_100m.pt")
+        state, history, _ = train_llm.main(list(TRAIN_EXAMPLE_ARGV) + ["--ckpt", path])
+        first, last = history[0], history[-1]
+        if not last["loss"] < first["loss"]:
+            raise RuntimeError(f"[13] the example's loss did not fall: {first} -> {last}")
+        fresh = loop.init_state(state.model.cfg, seed=1, device="cuda")
+        fresh = checkpoint.restore_state(path, fresh)
+        check_restore(torch, checkpoint.state_tree(state), checkpoint.state_tree(fresh))
+    ms = (last["wall"] - first["wall"]) / (last["step"] - first["step"]) * 1e3
+    print(f"[13a] train_llm --preset 100m: loss {first['loss']:.4f} -> {last['loss']:.4f} in "
+          f"{last['step'] + 1} steps, {ms:.2f} ms per step (host clock, steps "
+          f"{first['step']}-{last['step']}); checkpoint restored bit-equal "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    del state, fresh
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    for arch in TRAIN_CUT_ARCHS:
+        t0 = time.perf_counter()
+        cut = check_train_cut(torch, C, tf, loop, moe, pipeline, arch)
+        print(f"[13b] {arch} 2-layer train cut, card vs CPU: {json.dumps(cut)} "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    records = []
+    for arch, layers in TRAINERS:
+        cfg = C.get(arch) if layers is None else dataclasses.replace(C.get(arch),
+                                                                     num_layers=layers)
+        mem = train_memory_gib(cfg, TRAIN_BATCH, TRAIN_SEQ)
+        gib = {k: round(v, 2) for k, v in mem.items() if k != "params"}
+        print(f"[13c] {arch} {cfg.num_layers} layers, {mem['params'] / 1e9:.2f} B params, "
+              f"reckoned GiB: {json.dumps(gib)} of the card's ~{CARD_GIB:.0f}", flush=True)
+        argv = ["--arch", arch, "--steps", str(TRAIN_STEPS), "--batch", str(TRAIN_BATCH),
+                "--seq", str(TRAIN_SEQ), "--log-every", str(TRAIN_STEPS)]
+        if layers is not None:
+            argv += ["--layers", str(layers)]
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, rows = train.main(argv)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        if int(state.opt.step) != TRAIN_STEPS or len(rows) != TRAIN_STEPS:
+            raise RuntimeError(f"[13c] {arch}: step {int(state.opt.step)} after {len(rows)} rows")
+        bad = [r for r in rows if not (math.isfinite(r["loss"])
+                                       and math.isfinite(r["grad_norm"]))]
+        if bad:
+            raise RuntimeError(f"[13c] {arch}: non-finite steps {bad}")
+        steady = [r["ms"] for r in rows[1:]]
+        ms = sum(steady) / len(steady)
+        bound, bound_by = train_bound_ms(cfg, TRAIN_BATCH, TRAIN_SEQ)
+        rec = {"arch": arch, "layers": cfg.num_layers, "params": mem["params"],
+               "tokens_per_step": TRAIN_BATCH * TRAIN_SEQ, "first_step_ms": rows[0]["ms"],
+               "ms_per_step": ms, "min_ms": min(steady), "max_ms": max(steady),
+               "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / ms * 1e3, "bound_ms": bound,
+               "bound_by": bound_by, "bound_share": bound / ms, "peak_gib": peak,
+               "reckoned_gib": mem["total"], "loss_first": rows[0]["loss"],
+               "loss_last": rows[-1]["loss"], "grad_norm_last": rows[-1]["grad_norm"]}
+        records.append(rec)
+        print(f"[13c] {json.dumps(rec)} ({time.perf_counter() - t0:.1f} s)", flush=True)
+        del state, rows
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    after = dict(ops.LAUNCHES)
+    print(f"[13] launches after: {json.dumps(after)}", flush=True)
+    for name in ("flash_attention", "ssm_scan"):
+        if after[name] != before[name]:
+            raise RuntimeError(f"[13] training launched {name} "
+                               f"{after[name] - before[name]} times")
+    return records
+
+
 KERNELS = (("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
             "src/repro/kernels/flash_attention.py:85"),
            ("adaln_rmsnorm", "src/repro_torch/csrc/adaln_rmsnorm.cu",
@@ -2016,6 +2291,8 @@ def main() -> int:
     for arch in ZOO_ARCHS:
         by_path[arch] = serve_llm_phase(torch, C, tf, ops, serve_llm, arch, "8c")
     lap("8c")
+    train_phase(torch, C, tf, ops, moe)
+    lap("13")
 
     cluster_phase()
     lap("9")

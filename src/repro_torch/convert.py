@@ -4,7 +4,9 @@
 reference's ``{"encode", "diffuse", "decode"}`` pytree, and
 ``from_jax_lm(cfg, np_params, device)`` its ``Transformer`` from the
 reference's ``transformer.init`` pytree, both given as numpy arrays (the
-caller converts them; this module imports no JAX). Layer stacks are split
+caller converts them; this module imports no JAX), and ``from_jax_state``
+a ``training.loop.TrainState`` from the reference's ``TrainState``: its
+parameters, AdamW moments and step. Layer stacks are split
 into per-layer modules in execution order, HWIO conv kernels become OIHW,
 and every array goes through float32 (lossless for bf16) before taking the
 parameter's own dtype. Both build on ``cuda`` unless given another device.
@@ -20,6 +22,7 @@ from repro_torch import device as _device
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.pipeline import Pipeline, PipelineConfig
 from repro_torch.models.transformer import Transformer
+from repro_torch.training import loop, optimizer
 
 
 def _assign(p: torch.Tensor, arr: Any, name: str) -> None:
@@ -100,9 +103,39 @@ def from_jax_lm(cfg: ModelConfig, np_params: Mapping[str, Any], device=None) -> 
     layer's ``q_norm``/``k_norm`` where the config has ``qk_norm``), and the
     front ends' ``vision_proj``, ``codebook_embed`` and ``codebook_head``."""
     model = Transformer(cfg, _device.resolve(device)).eval()
-    for name in ("embed", "final_norm", "lm_head", "vision_proj", "codebook_embed",
-                 "codebook_head"):
-        if hasattr(model, name):
-            _assign(getattr(model, name), np_params[name], name)
-    _assign_layers(model.layers, _plan_layers(cfg, np_params["blocks"]), "lm")
+    for name, a in _lm_arrays(cfg, model, np_params).items():
+        _assign(model.get_parameter(name), a, name)
     return model
+
+
+def _lm_arrays(cfg: ModelConfig, model: Transformer, tree: Mapping[str, Any]) -> Dict[str, Any]:
+    """A pytree of the reference's parameter structure (its parameters, or
+    its AdamW moments) keyed by ``model``'s parameter names: the front ends'
+    and head's by name, the layers' unstacked in scan-plan order. Raises
+    ValueError where the names differ."""
+    names = dict(model.named_parameters())
+    out = {name: a for name, a in tree.items() if name != "blocks"}
+    for i, lp in enumerate(_plan_layers(cfg, tree["blocks"])):
+        out.update({f"layers.{i}.{k}": a for k, a in lp.items()})
+    if set(out) != set(names):
+        raise ValueError(f"the reference's parameters {sorted(set(out) - set(names))} and the "
+                         f"port's {sorted(set(names) - set(out))} do not match")
+    return out
+
+
+def from_jax_state(cfg: ModelConfig, params: Mapping[str, Any], mu: Mapping[str, Any],
+                   nu: Mapping[str, Any], step: int, device=None) -> loop.TrainState:
+    """The port's train state from the reference's ``TrainState``: its
+    ``params`` (through ``from_jax_lm``, then made learnable), its
+    ``opt.mu``/``opt.nu`` moments (float32) and ``opt.step``, as numpy."""
+    model = from_jax_lm(cfg, params, device).requires_grad_(True)
+    names = dict(model.named_parameters())
+    moments = []
+    for tree in (mu, nu):
+        arrays = _lm_arrays(cfg, model, tree)
+        moments.append({n: torch.from_numpy(np.array(arrays[n], dtype=np.float32)).to(p.device)
+                        for n, p in names.items()})
+    dev = model.embed.device
+    return loop.TrainState(model, optimizer.AdamWState(
+        step=torch.tensor(int(step), dtype=torch.int32, device=dev), mu=moments[0],
+        nu=moments[1]))

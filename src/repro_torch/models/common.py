@@ -81,7 +81,8 @@ class ModelConfig:
     dtype: Any = torch.bfloat16
     tie_embeddings: bool = False
     embed_scale: bool = False        # multiply embeddings by sqrt(d_model) (gemma)
-    attn_block_threshold: int = 4096  # CPU prefill: online-softmax blocked attention
+    remat: bool = True               # recompute each layer in the training pass's backward
+    attn_block_threshold: int = 4096  # CPU prefill, training: online-softmax blocked attention
     attn_block_size: int = 512        # ... with this KV block size
     source: str = ""
 
@@ -139,7 +140,9 @@ class ModelConfig:
 # ---------------------------------------------------------------------------
 
 def param(shape: Sequence[int], dtype, device) -> torch.nn.Parameter:
-    """An uninitialised, frozen parameter (the slice is forward only)."""
+    """An uninitialised, frozen parameter: serving models stay frozen, and
+    the trainer (``training/loop.init_state``) turns gradients on for its
+    own model."""
     return torch.nn.Parameter(torch.empty(tuple(shape), dtype=dtype, device=device),
                               requires_grad=False)
 

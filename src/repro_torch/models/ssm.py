@@ -3,7 +3,9 @@
 Counterpart of ``repro/models/ssm.py``. Both share the gated linear-attention
 recurrence ``S_t = diag(decay_t) S_{t-1} + k_t v_t^T``: prefill goes through
 ``ops.linear_scan`` (kernel K3 on the card), decode through the single-step
-``ops.linear_scan_decode``. Each mixer is an ``nn.Module`` whose parameter
+``ops.linear_scan_decode``, and the training pass (``train=True``) through
+``ref.chunked_linear_scan_ref``, the reference's training math, on every
+device. Each mixer is an ``nn.Module`` whose parameter
 names are the reference's keys, so weights carry over by name.
 
 State per layer (a dict, as the reference's):
@@ -19,7 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 from repro_torch.kernels.ssm_scan import MAX_NEG_LOGW
 from repro_torch.models import common
 from repro_torch.models.common import ModelConfig, param
@@ -110,8 +112,9 @@ class Mamba2(nn.Module):
         d = self.dims
         return torch.split(x @ self.in_proj, [d["d_inner"], d["conv_dim"], d["heads"]], dim=-1)
 
-    def forward(self, x: torch.Tensor, state: Optional[dict] = None) -> Tuple[torch.Tensor, dict]:
-        """Full-sequence (prefill) pass. x: (B, L, D)."""
+    def forward(self, x: torch.Tensor, state: Optional[dict] = None,
+                train: bool = False) -> Tuple[torch.Tensor, dict]:
+        """Full-sequence (prefill, or with ``train`` the training) pass. x: (B, L, D)."""
         b, l, _ = x.shape
         z, xbc, dt = self._project(x)
         prev = self.init_state(b, x.device) if state is None else state
@@ -121,7 +124,8 @@ class Mamba2(nn.Module):
         xbc_conv = sum(ctx[:, i:i + l, :] * self.conv_w[i] for i in range(self.cfg.ssm_conv))
         xbc_conv = xbc_conv + self.conv_b
         q, k, v, decay, xh = self._ssm_inputs(xbc_conv, dt)
-        out, s_new = ops.linear_scan(q, k, v, decay, initial_state=prev["ssm"])
+        scan = ref.chunked_linear_scan_ref if train else ops.linear_scan
+        out, s_new = scan(q, k, v, decay, initial_state=prev["ssm"])
         y = out.transpose(1, 2).to(x.dtype)                                # (B, L, H, P)
         return self._out(y, xh, z), {"conv": new_conv, "ssm": s_new}
 
@@ -238,8 +242,9 @@ class RWKV6(nn.Module):
         y = y * _silu(g).to(y.dtype)
         return y @ self.w_o
 
-    def timemix(self, x: torch.Tensor, state: Optional[dict], decode: bool):
-        """Returns (out, new_ssm_state, new_shift). x: (B, L, D)."""
+    def timemix(self, x: torch.Tensor, state: Optional[dict], decode: bool, train: bool = False):
+        """Returns (out, new_ssm_state, new_shift). x: (B, L, D); ``train``
+        runs the training pass's chunked scan."""
         b = x.shape[0]
         prev_tok = (state["shift_tm"] if state is not None
                     else torch.zeros((b, self.cfg.d_model), dtype=x.dtype, device=x.device))
@@ -250,7 +255,8 @@ class RWKV6(nn.Module):
                                                 decay[:, :, 0], s0, bonus=self.bonus_u)
             out = out[:, :, None, :]
         else:
-            out, s_new = ops.linear_scan(r, k, v, decay, bonus=self.bonus_u, initial_state=s0)
+            scan = ref.chunked_linear_scan_ref if train else ops.linear_scan
+            out, s_new = scan(r, k, v, decay, bonus=self.bonus_u, initial_state=s0)
         return self._out(out, g), s_new, x[:, -1, :]
 
     def channelmix(self, x: torch.Tensor, state: Optional[dict]):

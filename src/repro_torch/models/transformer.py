@@ -10,6 +10,10 @@ share the layer code, as in the reference:
   * ``run_layers``  — the encoder pass, no cache;
   * ``forward``     — the reference's cache-less pass: logits at every
                       position and the MoE layers' aux loss;
+  * ``train_forward`` — the same pass for training, under autograd: the
+                      reference's training math (``use_flash=False``) on
+                      every device, each layer recomputed in the backward
+                      under ``cfg.remat``;
   * ``prefill``     — the full prompt, filling one cache entry per layer;
   * ``decode_step`` — ONE token per sequence against the caches.
 
@@ -23,6 +27,13 @@ chunk), each with a dense or an MoE FFN (``models/moe.py``), ``qk_norm``,
 musicgen's codebook tokens (B, K, L) and a vision prefix of patch
 embeddings projected by ``vision_proj``. The port runs eagerly and updates
 the KV ring cache in place at decode.
+
+The layers' cache-less ``forward`` takes ``train``: attention then runs
+``common.attention`` with ``make_attention_mask`` (``attention_blocked`` at
+L >= ``attn_block_threshold``, L a multiple of ``attn_block_size``) and the
+SSM mixers the chunked scan ``ref.chunked_linear_scan_ref``, as the
+reference trains; no kernel runs, since the reference has no backward for
+one.
 """
 from __future__ import annotations
 
@@ -30,7 +41,9 @@ import math
 from typing import List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import device as _device
 from repro_torch.kernels import ops
@@ -81,10 +94,11 @@ class AttentionLayer(nn.Module):
     within the last ``window_size`` keys) or ``attn_chunked`` (causal within
     the query's chunk of ``chunk_size`` positions); the causal kinds prefill
     through ``ops.flash_attention`` and decode against the ring cache. On
-    the CPU, at L >= ``attn_block_threshold`` and L a multiple of
-    ``attn_block_size``, every kind runs ``common.attention_blocked``, where
-    the reference does. The FFN is a SwiGLU (``dense``) or the MoE (``moe``,
-    its weights under ``moe.``)."""
+    the CPU, and in the training pass on every device, at L >=
+    ``attn_block_threshold`` and L a multiple of ``attn_block_size``, every
+    kind runs ``common.attention_blocked``, where the reference does; the
+    training pass runs ``common.attention`` below that. The FFN is a SwiGLU
+    (``dense``) or the MoE (``moe``, its weights under ``moe.``)."""
 
     def __init__(self, cfg: ModelConfig, mixer: str, device=None, ffn: str = FFN_DENSE):
         super().__init__()
@@ -156,17 +170,18 @@ class AttentionLayer(nn.Module):
         return x + common.swiglu(h, self.w_gate, self.w_up, self.w_down), 0.0
 
     def _attention(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                   pos: torch.Tensor) -> torch.Tensor:
+                   pos: torch.Tensor, train: bool = False) -> torch.Tensor:
         """q, k, v: (B, L, H, Dh), KV heads repeated; pos: (L,)."""
         cfg = self.cfg
         l = q.shape[1]
-        if (q.device.type == "cpu" and l >= cfg.attn_block_threshold
+        if ((train or q.device.type == "cpu") and l >= cfg.attn_block_threshold
                 and l % cfg.attn_block_size == 0):
             return common.attention_blocked(q, k, v, pos, pos, self.mixer, cfg.window_size,
                                             cfg.chunk_size, cfg.attn_softcap,
                                             cfg.attn_block_size)
-        if self.mixer == ATTN_BIDIR:
-            mask = common.make_attention_mask(pos, pos, ATTN_BIDIR)
+        if train or self.mixer == ATTN_BIDIR:
+            mask = common.make_attention_mask(pos, pos, self.mixer, cfg.window_size,
+                                              cfg.chunk_size)
             return common.attention(q, k, v, mask, cfg.attn_softcap)
         if self.mixer == ATTN_CHUNKED and l > cfg.chunk_size:
             # within a chunk the mask is causal and no key crosses a chunk
@@ -178,7 +193,7 @@ class AttentionLayer(nn.Module):
         window = cfg.window_size if self.mixer == ATTN_LOCAL else 0
         return ops.flash_attention(q, k, v, causal=True, window=window, softcap=cfg.attn_softcap)
 
-    def _attend(self, x: torch.Tensor, positions: torch.Tensor):
+    def _attend(self, x: torch.Tensor, positions: torch.Tensor, train: bool = False):
         """Attention over the in-flight sequence only -> (x + out, (k, v))."""
         cfg = self.cfg
         b, l, _ = x.shape
@@ -186,13 +201,14 @@ class AttentionLayer(nn.Module):
         q, k, v = self._project_qkv(h, positions)
         n_rep = cfg.num_heads // cfg.num_kv_heads
         kr, vr = common.repeat_kv(k, n_rep), common.repeat_kv(v, n_rep)
-        out = self._attention(q, kr, vr, positions[0])
+        out = self._attention(q, kr, vr, positions[0], train)
         out = out.reshape(b, l, cfg.num_heads * cfg.resolved_head_dim)
         return x + out @ self.wo, (k, v)
 
-    def forward(self, x: torch.Tensor, positions: torch.Tensor):
-        """The cache-less pass -> (x, aux)."""
-        return self._ffn(self._attend(x, positions)[0])
+    def forward(self, x: torch.Tensor, positions: torch.Tensor, train: bool = False):
+        """The cache-less pass -> (x, aux); ``train``: the training pass's
+        attention."""
+        return self._ffn(self._attend(x, positions, train)[0])
 
     def prefill(self, x: torch.Tensor, positions: torch.Tensor, cache: dict):
         x, (k, v) = self._attend(x, positions)
@@ -244,9 +260,11 @@ class Mamba2Layer(nn.Module):
     def init_cache(self, batch: int, max_len: int, device=None) -> dict:
         return self.mamba.init_state(batch, device)
 
-    def forward(self, x: torch.Tensor, positions: torch.Tensor):
-        """The cache-less pass from a zero state -> (x, 0)."""
-        return self.prefill(x, positions, self.init_cache(x.shape[0], 0, x.device))[0], 0.0
+    def forward(self, x: torch.Tensor, positions: torch.Tensor, train: bool = False):
+        """The cache-less pass from a zero state -> (x, 0); ``train``: the
+        training pass's scan."""
+        out, _ = self.mamba(common.rms_norm(x, self.ln1, self.cfg.norm_eps), train=train)
+        return x + out, 0.0
 
     def prefill(self, x: torch.Tensor, positions: torch.Tensor, cache: dict):
         out, new = self.mamba(common.rms_norm(x, self.ln1, self.cfg.norm_eps), cache)
@@ -276,13 +294,15 @@ class RWKV6Layer(nn.Module):
     def init_cache(self, batch: int, max_len: int, device=None) -> dict:
         return self.rwkv.init_state(batch, device)
 
-    def forward(self, x: torch.Tensor, positions: torch.Tensor):
-        """The cache-less pass from a zero state -> (x, 0)."""
-        return self.prefill(x, positions, self.init_cache(x.shape[0], 0, x.device))[0], 0.0
+    def forward(self, x: torch.Tensor, positions: torch.Tensor, train: bool = False):
+        """The cache-less pass from a zero state -> (x, 0); ``train``: the
+        training pass's scan."""
+        return self._run(x, self.init_cache(x.shape[0], 0, x.device), False, train)[0], 0.0
 
-    def _run(self, x: torch.Tensor, state: dict, decode: bool):
+    def _run(self, x: torch.Tensor, state: dict, decode: bool, train: bool = False):
         eps = self.cfg.norm_eps
-        out, s_new, shift_tm = self.rwkv.timemix(common.rms_norm(x, self.ln1, eps), state, decode)
+        out, s_new, shift_tm = self.rwkv.timemix(common.rms_norm(x, self.ln1, eps), state, decode,
+                                                 train)
         x = x + out
         out2, shift_cm = self.rwkv.channelmix(common.rms_norm(x, self.ln2, eps), state)
         dt = self.cfg.dtype
@@ -355,10 +375,10 @@ class Transformer(nn.Module):
         ``vision_proj`` in the model's dtype and put in front of the text."""
         cfg = self.cfg
         if cfg.modality == "audio_codec" and tokens.dim() == 3:
-            x = torch.stack([self.codebook_embed[i][tokens[:, i]]
+            x = torch.stack([F.embedding(tokens[:, i], self.codebook_embed[i])
                              for i in range(tokens.shape[1])], dim=1).sum(1)
         else:
-            x = self.embed[tokens]
+            x = F.embedding(tokens, self.embed)
         if cfg.embed_scale:
             x = x * (cfg.d_model ** 0.5)
         if prefix_embeds is not None:
@@ -396,11 +416,25 @@ class Transformer(nn.Module):
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """The reference's cache-less pass: (logits at every position, the
         MoE layers' summed load-balance aux loss, f32)."""
+        return self._cacheless(tokens, prefix_embeds, train=False)
+
+    def train_forward(self, tokens: torch.Tensor, prefix_embeds: Optional[torch.Tensor] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The reference's training pass (``forward`` in its ``"train"``
+        mode), under autograd: the same (logits, aux) as ``forward``, with
+        the training pass's attention and scan on every device, and each
+        layer run under ``torch.utils.checkpoint`` when ``cfg.remat``."""
+        return self._cacheless(tokens, prefix_embeds, train=True)
+
+    def _cacheless(self, tokens, prefix_embeds, train: bool):
         x = self.embed_tokens(tokens, prefix_embeds)
         positions = self._positions(x)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for layer in self.layers:
-            x, a = layer(x, positions)
+            if train and self.cfg.remat:
+                x, a = checkpoint(layer, x, positions, train=True, use_reentrant=False)
+            else:
+                x, a = layer(x, positions, train=train)
             aux = aux + a
         return self.lm_logits(x), aux
 

@@ -320,3 +320,48 @@ def test_ssm_scan_kernel_staging_paths_on_card(cuda):
     assert tss.plan(qt, kt, vt, w)["staging"] == "element-wise q,k,v"
     u = rn(h, 64)
     _assert_scan_close(tss.ssm_scan(qt, kt, vt, w, bonus=u), ref.ssm_scan_ref(qt, kt, vt, w, u))
+
+
+TRAIN_ARCHS = ("yi-9b", "gemma2-9b", "deepseek-moe-16b", "rwkv6-3b", "zamba2-1.2b",
+               "llama4-maverick-400b-a17b", "internvl2-2b", "musicgen-medium")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
+def test_train_step_on_card_matches_cpu(cuda, arch):
+    """One train step of a smoke config (float32) on the card against the
+    same weights and batch on the CPU: the loss terms, each gradient (rms
+    of the difference against rms) and the updated parameters. The training
+    pass runs no kernel on the card."""
+    import repro_torch.configs as TC
+    from repro_torch.data import pipeline
+    from repro_torch.models import transformer
+    from repro_torch.training import loop, optimizer
+
+    cfg = TC.get_smoke(arch)
+    cpu = loop.init_state(cfg, 3, "cpu")
+    model = transformer.Transformer(cfg, cuda)
+    model.load_state_dict(cpu.model.state_dict())
+    card = loop.TrainState(model.requires_grad_(True),
+                           optimizer.init(dict(model.named_parameters())))
+    batch = pipeline.synthetic_batch(cfg, pipeline.DataConfig(2, 24), 0)
+    grads = {}
+    for name, state in (("cpu", cpu), ("card", card)):
+        loss, _ = loop.loss_fn(state.model, pipeline.to_tensors(batch, state.model.embed.device))
+        loss.backward()
+        grads[name] = {n: p.grad.cpu() for n, p in state.model.named_parameters()
+                       if p.grad is not None}
+    assert grads["cpu"].keys() == grads["card"].keys()
+    for n, want in grads["cpu"].items():
+        err = (grads["card"][n] - want).pow(2).mean().sqrt()
+        assert err <= 1e-4 * want.pow(2).mean().sqrt() + 1e-12, n
+    before = dict(ops.LAUNCHES)
+    step = loop.make_train_step(cfg)
+    (cpu, m_cpu), (card, m_card) = (step(s, pipeline.to_tensors(batch, s.model.embed.device))
+                                    for s in (cpu, card))
+    assert ops.LAUNCHES == before
+    for k in ("loss", "nll", "aux", "grad_norm", "lr"):
+        np.testing.assert_allclose(m_card[k].item(), m_cpu[k].item(), rtol=1e-5, atol=1e-7)
+    for (n, p), q in zip(cpu.model.named_parameters(), card.model.parameters()):
+        np.testing.assert_allclose(q.detach().cpu().numpy(), p.detach().numpy(),
+                                   rtol=1e-4, atol=1e-5, err_msg=n)

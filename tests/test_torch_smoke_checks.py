@@ -907,15 +907,15 @@ def test_k1_causal_row_subset_check_passes_rounding_and_rejects_a_wrong_last_til
 
 
 def test_top1_flip_counter_and_the_rate_bf16_gives_at_llama4s_width():
-    """``top1_differ`` splits the tokens whose expert differs from those
-    kept on one side only; ``routes`` records each call of ``moe.route``.
+    """``topk_differ`` at top-1 splits the tokens whose expert differs from
+    those kept on one side only; ``routes`` records each call of ``moe.route``.
     At llama4's width (5120 into 128 experts, its router's init), rounding
     the router's input to bf16 moves ~0.2% of 2200 tokens to another expert,
     and noise of 1% of its rms ~1.2%: MOE_FLIP_LIMIT sits between."""
     from repro_torch.models import common, moe
     idx = torch.tensor([[[0], [1], [2], [3]]])
     keep = torch.tensor([[[True], [True], [False], [True]]])
-    expert, kept = smoke.top1_differ(
+    expert, kept = smoke.topk_differ(
         [(torch.tensor([[[0], [2], [2], [3]]]), torch.tensor([[[True], [True], [True], [True]]]))],
         [(idx, keep)])
     assert expert.tolist() == [False, True, False, False]
@@ -986,3 +986,131 @@ def test_llm_bounds_count_the_weights_a_token_meets_and_the_masked_pairs():
     assert smoke.prefill_bound_ms(cfg, llama, l) == pytest.approx(
         flops / smoke.PEAK_BF16_TENSOR * 1e3)
     assert smoke.decode_bound_ms(llama) == pytest.approx(20.3, abs=0.05)
+
+
+def _train_cut_models():
+    """Phase 13 (b)'s deepseek cut (the dense layer, then an MoE one) at a
+    reduced width, in bf16 (weights from a seed) and the same weights in
+    float32, both learnable on the CPU."""
+    from repro_torch.models import transformer
+    cfg = dataclasses.replace(C.get("deepseek-moe-16b"), num_layers=2, d_model=256,
+                              num_heads=4, num_kv_heads=4, head_dim=64, d_ff=512, moe_d_ff=128,
+                              num_experts=16, experts_per_token=4, vocab_size=4096)
+    bf = transformer.Transformer(cfg, "cpu")
+    bf.init_(torch.Generator().manual_seed(14))
+    f32 = transformer.Transformer(dataclasses.replace(cfg, dtype=torch.float32), "cpu")
+    smoke.copy_params(torch, f32, bf)
+    return cfg, bf.requires_grad_(True), f32.requires_grad_(True)
+
+
+def _train_cut_sides(monkeypatch, backward=None, detach_router=False):
+    """(b)'s readings of the bf16 side (``backward`` in place of
+    ``train_cut_backward``; its router detached) against the float32 side."""
+    from repro_torch.data import pipeline
+    from repro_torch.models import moe
+    from repro_torch.training import loop
+    cfg, bf, f32 = _train_cut_models()
+    batch = pipeline.to_tensors(pipeline.synthetic_batch(cfg, pipeline.DataConfig(1, 256), 0),
+                                "cpu")
+    want_nll, want_aux, want_r = smoke.train_cut_side(loop, moe, f32, batch)
+    with monkeypatch.context() as m:
+        if detach_router:           # in the forward and in remat's recompute alike
+            real = moe.route
+            m.setattr(moe, "route", lambda c, router, xg: real(c, router.detach(), xg))
+        got_nll, got_aux, got_r = smoke.train_cut_side(loop, moe, bf, batch)
+        expert, kept = smoke.topk_differ(got_r, want_r)
+        keep = ~(expert | kept)
+        got = (backward or smoke.train_cut_backward)(torch, bf, got_nll, got_aux, keep)
+    want = smoke.train_cut_backward(torch, f32, want_nll, want_aux, keep)
+    return smoke.train_cut_readings(got, want), int(expert.sum())
+
+
+def _without_aux(torch, model, nll, aux, keep):
+    """``train_cut_backward`` with the aux term left out of the loss (the
+    aux reading itself kept)."""
+    mean = nll.reshape(-1)[keep].mean()
+    mean.backward()
+    grads = {n: (torch.zeros(p.shape) if p.grad is None else p.grad.float())
+             for n, p in model.named_parameters()}
+    return {"loss": mean.item(), "nll": mean.item(), "aux": aux.item(), "grads": grads}
+
+
+@pytest.mark.parametrize("fault", [None, "loss without aux", "detached router"])
+def test_train_cut_limits_pass_bf16_and_reject_faults(fault, monkeypatch):
+    """Phase 13 (b)'s limits pass bf16 against float32 on the same weights
+    (tokens whose experts differ left out) and reject a loss without its
+    aux term and a router that takes no gradient."""
+    readings, flips = _train_cut_sides(
+        monkeypatch, backward=_without_aux if fault == "loss without aux" else None,
+        detach_router=fault == "detached router")
+    print(f"{fault or 'bf16 rounding'}: {readings}, {flips} of 256 tokens changed experts")
+    if fault is None:
+        smoke.check_train_readings("bf16 cut", readings)
+        assert all(readings[k] < smoke.TRAIN_CUT_TOL[k] / 2 for k in smoke.TRAIN_CUT_TOL)
+        assert flips < smoke.TRAIN_FLIP_LIMIT * 256
+        return
+    with pytest.raises(RuntimeError, match="card vs CPU"):
+        smoke.check_train_readings(fault, readings)
+    if fault == "detached router":
+        assert readings["worst_grad"].endswith("moe.router") and readings["grad"] == 1.0
+
+
+def test_topk_flip_counter_compares_sets_of_experts():
+    """A token whose k experts come in another order is the same; one with
+    another expert differs; one kept by an expert on one side only counts
+    apart, over every recorded MoE call."""
+    want = [(torch.tensor([[[0, 1], [2, 3], [1, 2]]]),
+             torch.tensor([[[True, True], [True, True], [True, True]]]))] * 2
+    got = [(torch.tensor([[[1, 0], [2, 3], [1, 2]]]),
+            torch.tensor([[[True, True], [True, True], [True, False]]])),
+           (torch.tensor([[[0, 1], [2, 0], [1, 2]]]),
+            torch.tensor([[[True, True], [True, True], [True, True]]]))]
+    expert, kept = smoke.topk_differ(got, want)
+    assert expert.tolist() == [False, True, False] and kept.tolist() == [False, False, True]
+
+
+def test_restore_check_rejects_a_restore_that_drops_the_moments(tmp_path):
+    """Phase 13 (a)'s check passes a restore of every tensor and rejects one
+    that restores the parameters and leaves the moments as they were."""
+    from repro_torch.data import pipeline
+    from repro_torch.training import checkpoint, loop
+    cfg = C.get_smoke("yi-9b")
+    state = loop.init_state(cfg, 0, "cpu")
+    batch = pipeline.to_tensors(pipeline.synthetic_batch(cfg, pipeline.DataConfig(2, 16), 0),
+                                "cpu")
+    state, _ = loop.make_train_step(cfg)(state, batch)
+    saved = {k: t.clone() for k, t in checkpoint.state_tree(state).items()}
+    path = str(tmp_path / "s.pt")
+    checkpoint.save_state(path, state)
+    back = checkpoint.restore_state(path, loop.init_state(cfg, 1, "cpu"))
+    smoke.check_restore(torch, saved, checkpoint.state_tree(back))
+
+    def params_only(p, st):
+        tree = checkpoint.restore(p, checkpoint.state_tree(st))
+        for k, t in checkpoint.state_tree(st).items():
+            if k.startswith("params."):
+                t.copy_(tree[k])
+        return st
+    with torch.no_grad():
+        dropped = params_only(path, loop.init_state(cfg, 1, "cpu"))
+    with pytest.raises(RuntimeError, match="differs"):
+        smoke.check_restore(torch, saved, checkpoint.state_tree(dropped))
+
+
+def test_train_memory_and_bound_are_reckoned_from_the_shapes():
+    """The reckoning of (c): weights and grads in their dtypes, 8 bytes of
+    moments a parameter, the remat inputs and three f32 score tensors; the
+    bound's products 6 per token and weight met, 12 per kept pair and head
+    dim, for yi-9b cut to 8 layers at 4 x 2048 tokens."""
+    from repro_torch.models import transformer
+    cfg = dataclasses.replace(C.get("yi-9b"), num_layers=8)
+    model = transformer.Transformer(cfg, "meta")
+    n = sum(p.numel() for p in model.parameters())
+    mem = smoke.train_memory_gib(cfg, 4, 2048)
+    assert mem["params"] == n and mem["moments"] == pytest.approx(8 * n / 2 ** 30)
+    assert mem["transient"] == pytest.approx(3 * 4 * 32 * 2048 ** 2 * 4 / 2 ** 30)
+    per_token = n - cfg.vocab_size * cfg.d_model
+    flops = (6.0 * 4 * 2048 * per_token
+             + 12.0 * 4 * (2048 * 2049 // 2) * 32 * 128 * 8)
+    ms, by = smoke.train_bound_ms(cfg, 4, 2048)
+    assert by == "operations" and ms == pytest.approx(flops / smoke.PEAK_BF16_TENSOR * 1e3)
