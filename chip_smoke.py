@@ -107,6 +107,29 @@ Phases:
      it, finite loss and gradient norm at every step, step 10 at the end,
      and ms a step, tokens/s, peak GiB and the step's bound printed. The
      phase must add no K1 and no K3 launch;
+  14. (run after 13) sharding on the card, with worlds of 4 and 2 ranks
+     sharing it over gloo (``repro_torch.launch.shard_check``; NCCL does
+     not put two ranks on one card, and gloo carries CUDA tensors through
+     the host, so the phase's host seconds time gloo, not the card): (a)
+     Ulysses attention (``sharding/sequence_parallel.py``: an all-to-all
+     from sequence to head sharding, K1, the all-to-all back) at sd3's and
+     flux's attention widths (B = 1, L = 4096, non-causal) and yi-9b's (B =
+     2, L = 2048, causal), bf16, its gathered output held against K1
+     unsharded within K1's limits and against the plain version on
+     ``k1_rows``; (b) the chunk-parallel scan through K3 at rwkv6-3b's
+     width (with the bonus) and zamba2-1.2b's (inclusive), B = 1, L =
+     2048, each also at the decay floor, held against K3 unsharded within
+     K3's limits; (c) one sharded train step (``launch/train``'s path:
+     DTensor state by the partition rules, float32, TF32 off) of yi-9b cut
+     to 2 layers with ``zero`` and without, and of deepseek-moe-16b cut to
+     2 layers with ``fsdp``, B x L = 2 x 1024, against the unsharded step
+     on the card (loss, gradient norm, every parameter and moment), each
+     with its memory reckoned first, at world size 1 under NCCL on a 1x1
+     mesh (``SP_TRAIN_WHY``: gloo's functional all-gather on CUDA tensors
+     ends the rank in torch 2.11). One ``[14]
+     {json}`` row per check; the ranks' K1 and K3 launches are counted (a
+     path of their own in the kernels line), and the train step must
+     launch none;
   9. run the simulated H100 cluster through ``repro_torch.launch.serve.main``
      for each pipeline on the dynamic workload over 600 s, trident and B1-B6,
      at 128 chips and at 16 (with the rate scaled to the same load per
@@ -2135,6 +2158,212 @@ def train_phase(torch, C, tf, ops, moe) -> list:
     return records
 
 
+# phase 14: sharding on the card. Worlds of 2 and 4 ranks (shard_check.World)
+# share the one card over gloo, which carries CUDA tensors through the host
+# (NCCL does not put two ranks on one card): the host seconds printed are
+# gloo's, and time nothing on the card. (a) Ulysses attention through K1 at
+# sd3's and flux's attention widths (non-causal, a 1024 px latent grid) and
+# yi-9b's (causal, GQA expanded), bf16, its gathered output held against K1
+# unsharded on the same inputs within K1's limits and against the plain
+# version on ``k1_rows``; (b) the chunk-parallel scan through K3 at rwkv6's
+# width (strict read with the bonus) and zamba2's (inclusive, q and k shared
+# across heads), each also at the decay floor, held against K3 unsharded
+# within K3's limits (and finite); (c) one sharded train step of full-width
+# 2-layer cuts (float32, TF32 off) against the unsharded step on the card:
+# the loss within SP_LOSS_TOL, the gradient norm within SP_GNORM_TOL, every
+# parameter within SP_PARAM_TOL of its rms and every AdamW moment (after one
+# step, the gradient and its square, scaled) within SP_PARAM_TOL of its
+# largest value, as tests/test_torch_train.py holds moments (g^2 and the
+# embedding's gradient are heavy-tailed: their rms reads the rounding of
+# their largest values). A parameter that was all zeros before the step (a
+# norm weight) holds only AdamW's step, lr * g / (|g| + eps), where a
+# gradient's rounding near 0 moves a value by up to lr: it is held within
+# lr, as that test holds parameters (the card moved deepseek-moe's
+# layers.0.ln1 by 2.2e-4 of its rms, 6.5e-10, with the loss exact). (c) runs at world size 1
+# under NCCL on a 1x1 mesh (SP_TRAIN_WHY): the same code, its placements
+# and redistributions, with nothing to send.
+SP_WORLDS = (4, 2)
+SP_ATTN = (("sd3", 1, 4096, 24, 64, False), ("flux", 1, 4096, 24, 128, False),
+           ("yi-9b", 2, 2048, 32, 128, True))
+SP_SCAN = (("rwkv6-3b", 1, 40, 2048, 64, True, "per-head"),
+           ("zamba2-1.2b", 1, 64, 2048, 64, False, "zamba2"))
+SP_TRAIN = (("yi-9b", (1, 1), ("zero",)), ("yi-9b", (1, 1), ()),
+            ("deepseek-moe-16b", (1, 1), ("fsdp",)))
+SP_TRAIN_BACKEND = "nccl"
+SP_TRAIN_WHY = ("in torch 2.11 gloo's functional all-gather on CUDA tensors (DTensor's "
+                "Shard -> Replicate: ZeRO's updates, FSDP's weights, the vocab-sharded "
+                "table) ends the rank with SIGSEGV, where the same all-gather called "
+                "directly runs (`python -m repro_torch.launch.shard_check --probe`); "
+                "ranks on the CPU run the sharded step on 2x1, 1x2 and 2x2 meshes "
+                "(tests/test_torch_sharding.py)")
+SP_TRAIN_LAYERS, SP_TRAIN_BATCH, SP_TRAIN_SEQ = 2, 2, 1024
+SP_LOSS_TOL, SP_GNORM_TOL, SP_PARAM_TOL = 1e-5, 1e-4, 1e-4
+
+
+def sharding_cases(sc, world: int) -> tuple:
+    """Phase 14's (Ulysses, scan, train) cases for a world of ``world`` ranks:
+    (a) and (b) in the worlds of SP_WORLDS, (c) in the world of one."""
+    attn = [sc.AttnCase(name, b, l, h, d, causal=causal, dtype="bfloat16", seed=140 + i)
+            for i, (name, b, l, h, d, causal) in enumerate(SP_ATTN)]
+    scan = [sc.ScanCase(name + (" floor" if floor else ""), b, h, l, k, k, bonus, layout=layout,
+                        floor=floor, dtype="bfloat16", seed=150 + 2 * i + floor)
+            for i, (name, b, h, l, k, bonus, layout) in enumerate(SP_SCAN)
+            for floor in (False, True)]
+    train = [sc.TrainCase(arch, mesh, opts, smoke=False, layers=SP_TRAIN_LAYERS,
+                          batch=SP_TRAIN_BATCH, seq=SP_TRAIN_SEQ, steps=1, dtype="float32")
+             for arch, mesh, opts in SP_TRAIN]
+    return ([], [], train) if world == 1 else (attn, scan, [])
+
+
+def sharded_attention_row(ops, ref, sc, case, got, world: int, seconds: float, kernel,
+                          device: str = "cuda"):
+    """(a)'s check of one gathered Ulysses output ``got`` (CPU) against
+    ``kernel`` (K1's wrapper; on the CPU, ``ops.flash_attention``'s plain
+    version) on the case's inputs on ``device`` -> its row; raises where
+    K1's limits fail."""
+    q, k, v = sc.attn_inputs(case, device)
+    got = got.to(device)
+    want = kernel(q, k, v, causal=case.causal)
+    err, rel, ok = k1_agree(got, want)
+    rows = k1_rows(case.l, case.seed)
+    mask = ops.attention_mask(case.l, case.l, 0, q.device) if case.causal else None
+    p_err, p_rel, p_ok = k1_subset_agree(ref, got, q, k, v, rows, mask)
+    row = {"check": "ulysses", "case": case.name, "world": world, "mesh": f"1x{world}",
+           "backend": "gloo", "shape": [case.b, case.l, case.h, case.d], "causal": case.causal,
+           "max_abs_err": err, "rms_rel": rel, "plain_rows": len(rows),
+           "plain_max_abs_err": p_err, "plain_rms_rel": p_rel, "host_s": seconds}
+    if not (ok and p_ok):
+        raise RuntimeError(f"[14] Ulysses {case.name} at {world} ranks off K1's limits: {row}")
+    return row
+
+
+def sharded_scan_row(torch, sc, case, got, world: int, seconds: float, kernel,
+                     device: str = "cuda"):
+    """(b)'s check of one chunk-parallel scan's (output, final state) ``got``
+    (CPU) against ``kernel`` (K3's wrapper; on the CPU, ``ops.linear_scan``'s
+    plain version) on the case's inputs on ``device`` -> its row; raises
+    where K3's limits fail or a value is not finite."""
+    q, k, v, decay, bonus = sc.scan_inputs(case, device)
+    want = kernel(q, k, v, decay, bonus=bonus)
+    out = (got[0].to(device), got[1].to(device))
+    e_out, e_state, ok = scan_agree(out, want)
+    finite = all(bool(torch.isfinite(t).all()) for t in out)
+    row = {"check": "scan", "case": case.name, "world": world, "mesh": f"1x{world}",
+           "backend": "gloo", "shape": [case.b, case.h, case.l, case.k, case.v],
+           "bonus": case.bonus, "floor": case.floor, "max_abs_err": e_out,
+           "state_max_abs_err": e_state, "finite": finite, "host_s": seconds}
+    if not (ok and finite):
+        raise RuntimeError(f"[14] scan {case.name} at {world} ranks off K3's limits: {row}")
+    return row
+
+
+def sharded_train_row(row: dict) -> dict:
+    """(c)'s check of one ``shard_check.train_ranks`` row -> its printed
+    row; raises where a limit fails."""
+    out = {"check": "train", "arch": row["arch"], "world": row["world"], "mesh": row["mesh"],
+           "opts": row["opts"], "backend": row["backend"], "loss_rel": row["loss"],
+           "grad_norm_rel": row["grad_norm"], "param_err_over_rms": row["params"],
+           "worst_param": row["worst_param"], "zero_init_abs_err": row["zero_init_abs"],
+           "lr": row["steps"][-1]["want"]["lr"], "moment_err_over_max": row["moments"],
+           "topk_differ": row["topk_differ"], "tokens": row["tokens"],
+           "loss": row["steps"][0]["got"]["loss"], "host_s": row["host_s"]}
+    if any(row["launches"][name] for name in ("flash_attention", "ssm_scan")):
+        raise RuntimeError(f"[14] the sharded train step launched a kernel: {row['launches']}")
+    if not (row["loss"] <= SP_LOSS_TOL and row["grad_norm"] <= SP_GNORM_TOL
+            and row["params"] <= SP_PARAM_TOL and row["moments"] <= SP_PARAM_TOL
+            and row["zero_init_abs"] <= out["lr"]):
+        raise RuntimeError(f"[14] sharded train step off its limits: {out}")
+    return out
+
+
+def sharding_memory_gib(cfg, mesh: tuple, opts: tuple) -> dict:
+    """(c)'s memory on the card, reckoned from the shapes and the partition
+    rules before it holds it: rank 0's unsharded step (weights, grads, two
+    f32 moments, activations) and the weights and moments it keeps after;
+    then each rank at its peak, the larger of building the full state and
+    sharding it, and the step (its shards, the weights gathered whole, the
+    full-size pending gradients, activations); the total of both worlds'
+    peaks."""
+    import torch
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import transformer
+    from repro_torch.sharding import partition
+    from repro_torch.training.optimizer import AdamWState
+    mem = train_memory_gib(cfg, SP_TRAIN_BATCH, SP_TRAIN_SEQ)
+    params = dict(transformer.Transformer(cfg, "meta").named_parameters())
+    shape = mesh_lib.MeshShape(mesh_lib.AXES, tuple(mesh))
+    tree = partition.StateTree(params, AdamWState(step=torch.empty(()), mu=params, nu=params))
+    zero = bool({"zero", "fsdp"} & set(opts))
+    spec = partition.validate_divisibility(partition.state_specs(
+        cfg, tree, zero_mesh=shape if zero else None, fsdp="fsdp" in opts), tree, shape)
+    sizes = shape.shape
+
+    def share(s) -> int:
+        n = 1
+        for ax in s:
+            for a in (() if ax is None else (ax,) if isinstance(ax, str) else ax):
+                n *= sizes[a]
+        return n
+    shards = sum(p.numel() * (p.element_size() / share(spec.params[n])
+                              + 4 / share(spec.opt.mu[n]) + 4 / share(spec.opt.nu[n]))
+                 for n, p in params.items()) / 2 ** 30
+    full = mem["weights"] + mem["moments"]
+    act = mem["remat_saved"] + mem["transient"]
+    per_rank = max(full + shards, shards + mem["weights"] + mem["grads"] + act)
+    world = shape.size
+    return {"unsharded": full + mem["grads"] + act, "kept": full, "shards": shards,
+            "per_rank": per_rank, "total": max(full + mem["grads"] + act, full + world * per_rank)}
+
+
+def sharding_phase(torch, C, ops, ref, fa, ss) -> dict:
+    """Phase 14 -> the K1 and K3 launches of the ranks' sharded calls."""
+    from repro_torch.launch import shard_check as sc
+    launches = {"flash_attention": 0, "adaln_rmsnorm": 0, "ssm_scan": 0}
+    print(f"[14] (c) runs at world size 1 under {SP_TRAIN_BACKEND} on a 1x1 mesh: "
+          f"{SP_TRAIN_WHY}", flush=True)
+    for arch, mesh, opts in SP_TRAIN:
+        cfg = sc.case_config(sc.TrainCase(arch, mesh, opts, smoke=False, layers=SP_TRAIN_LAYERS,
+                                          dtype="float32"))
+        gib = {k: round(v, 2) for k, v in sharding_memory_gib(cfg, mesh, opts).items()}
+        print(f"[14] {arch} {SP_TRAIN_LAYERS} layers f32 on {'x'.join(map(str, mesh))} "
+              f"{','.join(opts) or '-'}: reckoned GiB {json.dumps(gib)} of the card's "
+              f"~{CARD_GIB:.0f}", flush=True)
+        if gib["total"] > CARD_GIB:
+            raise RuntimeError(f"[14] {arch} on {mesh} {opts} would not fit the card: {gib}")
+    for world in SP_WORLDS + (1,):
+        attn, scan, train = sharding_cases(sc, world)
+        t0 = time.perf_counter()
+        res = sc.run(world, sc.suite_ranks, attn, scan, train, device="cuda", threads=0,
+                     timeout=900, backend="gloo" if world > 1 else SP_TRAIN_BACKEND)
+        print(f"[14] world of {world} rank(s) on one card ran in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        first = res[0]
+        for part in ("ulysses", "scan"):
+            for r in res:
+                for name, n in r[part]["launches"].items():
+                    launches[name] += n
+        for case, got, secs in zip(attn, first["ulysses"]["outputs"],
+                                   first["ulysses"]["seconds"]):
+            row = sharded_attention_row(ops, ref, sc, case, got, world, secs, fa.flash_attention)
+            print(f"[14] {json.dumps(row)}", flush=True)
+        for case, got, secs in zip(scan, first["scan"]["outputs"], first["scan"]["seconds"]):
+            row = sharded_scan_row(torch, sc, case, got, world, secs, ss.ssm_scan)
+            print(f"[14] {json.dumps(row)}", flush=True)
+        for row in first["train"]:
+            print(f"[14] {json.dumps(sharded_train_row(row))}", flush=True)
+        del res, first
+        gc.collect()
+        torch.cuda.empty_cache()
+    want = {"flash_attention": len(SP_ATTN) * sum(SP_WORLDS),
+            "ssm_scan": 2 * 2 * len(SP_SCAN) * sum(SP_WORLDS)}
+    print(f"[14] launches of the ranks' sharded calls: {json.dumps(launches)} "
+          f"(expected {json.dumps(want)})", flush=True)
+    for name, n in want.items():
+        if launches[name] != n:
+            raise RuntimeError(f"[14] {name} launched {launches[name]} times, not {n}")
+    return launches
+
+
 KERNELS = (("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
             "src/repro/kernels/flash_attention.py:85"),
            ("adaln_rmsnorm", "src/repro_torch/csrc/adaln_rmsnorm.cu",
@@ -2293,6 +2522,8 @@ def main() -> int:
     lap("8c")
     train_phase(torch, C, tf, ops, moe)
     lap("13")
+    by_path["14 sharding"] = sharding_phase(torch, C, ops, ref, fa, ss)
+    lap("14")
 
     cluster_phase()
     lap("9")

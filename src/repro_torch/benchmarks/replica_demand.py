@@ -34,7 +34,7 @@ def run(quick: bool = True, hw: Hardware = H100_SXM) -> List[Row]:
                 reqs.append(Request(pid, res, float(sec)))
             plan = orch.generate(reqs)
             hist = plan.type_histogram()
-            d_units = sum(n for t, n in hist.items() if "D" in t)
+            d_units = sum(n for t, n in hist.items() if "D" in t)  # detlint: ignore[DET001] int unit counts: exact
             rows.append((
                 f"replica_demand/{pid}/{level}/d_unit_share",
                 round(d_units / plan.num_units, 3),

@@ -20,6 +20,7 @@ from torch import nn
 
 from repro_torch.models import common
 from repro_torch.models.common import ModelConfig, param
+from repro_torch.sharding import spmd
 
 GROUP_SIZE = 1024   # routing-group length (GShard-style); bounds capacity
 
@@ -83,40 +84,64 @@ def route(cfg: ModelConfig, router: torch.Tensor, xg: torch.Tensor):
     return probs, idx, gates * keep, pos, keep
 
 
+def _dispatch(cfg: ModelConfig, xg: torch.Tensor, router: torch.Tensor):
+    """Routing of the groups xg (G, S, D) -> (the expert batch xe (E, G * C,
+    D), expert index (G, S, k), gates (G, S, k), slot (G, S, k), the
+    load-balance aux loss)."""
+    g_n, s, d = xg.shape
+    e = cfg.num_experts
+    cap = capacity(cfg, s)
+    probs, idx, gates, pos, keep = route(cfg, router, xg)
+
+    # each (group, expert, slot) names its token; empty slots name a zero row
+    gi = torch.arange(g_n, device=xg.device)[:, None, None].expand_as(idx)
+    si = torch.arange(s, device=xg.device)[None, :, None].expand_as(idx)
+    slot_token = torch.full((g_n * e * cap,), s, dtype=torch.long, device=xg.device)
+    slot_token[((gi * e + idx) * cap + pos)[keep]] = si[keep]
+    rows = torch.cat([xg, xg.new_zeros((g_n, 1, d))], 1)          # (G, S + 1, D)
+    xe = torch.gather(rows, 1, slot_token.view(g_n, e * cap, 1).expand(-1, -1, d))
+    xe = xe.view(g_n, e, cap, d).transpose(0, 1).reshape(e, g_n * cap, d)
+
+    # load-balance auxiliary loss (Switch eq. 4)
+    density = F.one_hot(idx[..., 0], e).float().mean(dim=(0, 1))
+    aux = torch.sum(density * probs.mean(dim=(0, 1))) * e * cfg.router_aux_weight
+    return xe, idx, gates, pos, aux
+
+
+def _combine(ye: torch.Tensor, idx: torch.Tensor, gates: torch.Tensor, pos: torch.Tensor,
+             dtype: torch.dtype) -> torch.Tensor:
+    """Each token's kept slots of ye (E, G, C, D), weighted by its gates in
+    the activations' dtype -> (G, S, D)."""
+    cap = ye.shape[2]
+    gi = torch.arange(idx.shape[0], device=idx.device)[:, None, None].expand_as(idx)
+    yk = ye[idx, gi, torch.clamp(pos, max=cap - 1)]              # (G, S, k, D)
+    w = gates.to(dtype).float()[..., None]
+    return (yk.float() * w).sum(2).to(dtype)
+
+
 def moe_ffn(cfg: ModelConfig, layer: MoE, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, L, D) -> (out (B, L, D), load-balance aux loss (f32 scalar))."""
+    """x: (B, L, D) -> (out (B, L, D), load-balance aux loss (f32 scalar)).
+
+    On a mesh the grouping, the routing and the combine (topk, cumsum, the
+    boolean scatter and the gathers have no DTensor strategy) run on the
+    whole, replicated groups; the experts' products run on the
+    expert-sharded weights (expert parallelism)."""
     b, l, d = x.shape
     t = b * l
     e = cfg.num_experts
     s = _group_size(t)
     g_n = t // s
     cap = capacity(cfg, s)
-    xg = x.reshape(g_n, s, d)
-    probs, idx, gates, pos, keep = route(cfg, layer.router, xg)
-
-    # each (group, expert, slot) names its token; empty slots name a zero row
-    gi = torch.arange(g_n, device=x.device)[:, None, None].expand_as(idx)
-    si = torch.arange(s, device=x.device)[None, :, None].expand_as(idx)
-    slot_token = torch.full((g_n * e * cap,), s, dtype=torch.long, device=x.device)
-    slot_token[((gi * e + idx) * cap + pos)[keep]] = si[keep]
-    rows = torch.cat([xg, xg.new_zeros((g_n, 1, d))], 1)          # (G, S + 1, D)
-    xe = torch.gather(rows, 1, slot_token.view(g_n, e * cap, 1).expand(-1, -1, d))
-    xe = xe.view(g_n, e, cap, d).transpose(0, 1).reshape(e, g_n * cap, d)
+    xg = spmd.local(lambda x_: x_.reshape(g_n, s, d), x, whole=True)
+    xe, idx, gates, pos, aux = spmd.local(lambda xg_, r_: _dispatch(cfg, xg_, r_), xg,
+                                          layer.router, whole=True)
     gg = torch.bmm(xe, layer.w_gate)
     uu = torch.bmm(xe, layer.w_up)
     h = F.silu(gg.float()).to(xe.dtype) * uu
-    del gg, uu, xe, rows            # free the expert batch before the combine (llama4's prefill)
+    del gg, uu, xe                  # free the expert batch before the combine (llama4's prefill)
     ye = torch.bmm(h, layer.w_down).view(e, g_n, cap, d)          # (E, G, C, D)
     del h
-
-    # combine: each token's kept slots, weighted by its gates in x's dtype
-    yk = ye[idx, gi, torch.clamp(pos, max=cap - 1)]              # (G, S, k, D)
-    w = gates.to(x.dtype).float()[..., None]
-    y = (yk.float() * w).sum(2).to(x.dtype)
+    y = spmd.local(lambda *a: _combine(*a, x.dtype), ye, idx, gates, pos, whole=True)
     if cfg.num_shared_experts:
         y = y + common.swiglu(xg, layer.shared_gate, layer.shared_up, layer.shared_down)
-
-    # load-balance auxiliary loss (Switch eq. 4)
-    density = F.one_hot(idx[..., 0], e).float().mean(dim=(0, 1))
-    aux = torch.sum(density * probs.mean(dim=(0, 1))) * e * cfg.router_aux_weight
     return y.reshape(b, l, d), aux

@@ -25,6 +25,24 @@ from repro_torch.kernels import ops, ref
 from repro_torch.kernels.ssm_scan import MAX_NEG_LOGW
 from repro_torch.models import common
 from repro_torch.models.common import ModelConfig, param
+from repro_torch.sharding import spmd
+
+
+def _train_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, decay: torch.Tensor,
+                bonus: Optional[torch.Tensor] = None,
+                initial_state: Optional[torch.Tensor] = None):
+    """The training pass's chunked scan. On a mesh it runs on each rank's
+    batch rows (its reshapes into chunks and its loop over them have no
+    DTensor strategy), from the training pass's zero state."""
+    if not spmd.is_dtensor(q):
+        return ref.chunked_linear_scan_ref(q, k, v, decay, bonus=bonus,
+                                           initial_state=initial_state)
+    if initial_state is not None:
+        raise ValueError("on a mesh the training pass's scan starts from the zero state")
+    if bonus is None:
+        return spmd.local(ref.chunked_linear_scan_ref, q, k, v, decay)
+    return spmd.local(lambda *a: ref.chunked_linear_scan_ref(*a[:4], bonus=a[4]),
+                      q, k, v, decay, bonus, shared=(4,))
 
 
 def _silu(x: torch.Tensor) -> torch.Tensor:
@@ -124,8 +142,11 @@ class Mamba2(nn.Module):
         xbc_conv = sum(ctx[:, i:i + l, :] * self.conv_w[i] for i in range(self.cfg.ssm_conv))
         xbc_conv = xbc_conv + self.conv_b
         q, k, v, decay, xh = self._ssm_inputs(xbc_conv, dt)
-        scan = ref.chunked_linear_scan_ref if train else ops.linear_scan
-        out, s_new = scan(q, k, v, decay, initial_state=prev["ssm"])
+        if train:
+            out, s_new = _train_scan(q, k, v, decay,
+                                     initial_state=None if state is None else prev["ssm"])
+        else:
+            out, s_new = ops.linear_scan(q, k, v, decay, initial_state=prev["ssm"])
         y = out.transpose(1, 2).to(x.dtype)                                # (B, L, H, P)
         return self._out(y, xh, z), {"conv": new_conv, "ssm": s_new}
 
@@ -255,7 +276,7 @@ class RWKV6(nn.Module):
                                                 decay[:, :, 0], s0, bonus=self.bonus_u)
             out = out[:, :, None, :]
         else:
-            scan = ref.chunked_linear_scan_ref if train else ops.linear_scan
+            scan = _train_scan if train else ops.linear_scan
             out, s_new = scan(r, k, v, decay, bonus=self.bonus_u, initial_state=s0)
         return self._out(out, g), s_new, x[:, -1, :]
 

@@ -51,8 +51,24 @@ from repro_torch.models import common, moe, ssm
 from repro_torch.models.common import (ATTN, ATTN_BIDIR, ATTN_CHUNKED, ATTN_KINDS, ATTN_LOCAL,
                                        FFN_DENSE, FFN_MOE, MAMBA2, RWKV6, SSM_KINDS, ModelConfig,
                                        param)
+from repro_torch.sharding import partition, spmd
 
 FFN_NONE = "none"
+
+# Optional partition spec of the residual stream in the training pass
+# (Megatron-style sequence sharding; set by the launcher before training).
+# On a mesh the stream is redistributed to it at the start of each scan
+# cycle, as the reference's ``with_sharding_constraint`` on the scan carry.
+_ACTIVATION_SPEC = None
+
+
+def set_activation_sharding(spec) -> None:
+    """The residual stream's spec in the training pass (a
+    ``sharding.partition.P`` over the mesh's axes), or None."""
+    global _ACTIVATION_SPEC
+    _ACTIVATION_SPEC = spec
+
+
 PORTED_KINDS = ((ATTN_BIDIR, FFN_DENSE), (ATTN, FFN_DENSE), (ATTN_LOCAL, FFN_DENSE),
                 (ATTN, FFN_MOE), (ATTN_CHUNKED, FFN_DENSE), (ATTN_CHUNKED, FFN_MOE),
                 (MAMBA2, FFN_NONE), (RWKV6, FFN_NONE))
@@ -201,7 +217,12 @@ class AttentionLayer(nn.Module):
         q, k, v = self._project_qkv(h, positions)
         n_rep = cfg.num_heads // cfg.num_kv_heads
         kr, vr = common.repeat_kv(k, n_rep), common.repeat_kv(v, n_rep)
-        out = self._attention(q, kr, vr, positions[0], train)
+        pos = positions[0]
+        # on a mesh the core runs on each rank's shard of the batch and the
+        # heads (it treats each on its own): DTensor's strategy search for
+        # the f32 scores' products and masked softmax costs seconds a shape
+        out = spmd.local(lambda q_, k_, v_: self._attention(q_, k_, v_, pos, train), q, kr, vr,
+                         keep=(0, 2))
         out = out.reshape(b, l, cfg.num_heads * cfg.resolved_head_dim)
         return x + out @ self.wo, (k, v)
 
@@ -296,8 +317,9 @@ class RWKV6Layer(nn.Module):
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor, train: bool = False):
         """The cache-less pass from a zero state -> (x, 0); ``train``: the
-        training pass's scan."""
-        return self._run(x, self.init_cache(x.shape[0], 0, x.device), False, train)[0], 0.0
+        training pass's scan (its zero state made there)."""
+        state = None if train else self.init_cache(x.shape[0], 0, x.device)
+        return self._run(x, state, False, train)[0], 0.0
 
     def _run(self, x: torch.Tensor, state: dict, decode: bool, train: bool = False):
         eps = self.cfg.norm_eps
@@ -374,11 +396,15 @@ class Transformer(nn.Module):
         ``prefix_embeds`` (B, Tv, Dv): stub patch embeddings, projected by
         ``vision_proj`` in the model's dtype and put in front of the text."""
         cfg = self.cfg
+        # on a mesh the vocab-sharded table is gathered whole for the lookup:
+        # DTensor's lookup leaves a masked pending sum whose backward it
+        # cannot redistribute
         if cfg.modality == "audio_codec" and tokens.dim() == 3:
-            x = torch.stack([F.embedding(tokens[:, i], self.codebook_embed[i])
-                             for i in range(tokens.shape[1])], dim=1).sum(1)
+            x = spmd.local(lambda t, cb: torch.stack([F.embedding(t[:, i], cb[i])
+                                                      for i in range(t.shape[1])], dim=1).sum(1),
+                           tokens, self.codebook_embed, shared=(1,))
         else:
-            x = F.embedding(tokens, self.embed)
+            x = spmd.local(F.embedding, tokens, self.embed, shared=(1,))
         if cfg.embed_scale:
             x = x * (cfg.d_model ** 0.5)
         if prefix_embeds is not None:
@@ -426,11 +452,25 @@ class Transformer(nn.Module):
         layer run under ``torch.utils.checkpoint`` when ``cfg.remat``."""
         return self._cacheless(tokens, prefix_embeds, train=True)
 
+    def cycle_starts(self) -> frozenset:
+        """The indices of the layers that begin a repeat of their scan-plan
+        block's cycle (the reference's scan body)."""
+        starts, i = set(), 0
+        for cycle, repeat in self.cfg.scan_plan():
+            for _ in range(repeat):
+                starts.add(i)
+                i += len(cycle)
+        return frozenset(starts)
+
     def _cacheless(self, tokens, prefix_embeds, train: bool):
         x = self.embed_tokens(tokens, prefix_embeds)
         positions = self._positions(x)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        for layer in self.layers:
+        starts = self.cycle_starts() if train and _ACTIVATION_SPEC is not None else ()
+        for i, layer in enumerate(self.layers):
+            if i in starts and spmd.is_dtensor(x):
+                x = x.redistribute(x.device_mesh,
+                                   partition.placements(_ACTIVATION_SPEC, x.device_mesh))
             if train and self.cfg.remat:
                 x, a = checkpoint(layer, x, positions, train=True, use_reentrant=False)
             else:

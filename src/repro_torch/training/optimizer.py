@@ -57,13 +57,34 @@ def init(params: Tree) -> AdamWState:
                       nu={n: torch.zeros_like(z) for n, z in zeros.items()})
 
 
+def _is_dtensor(x) -> bool:
+    # imported here: the sharding package imports this module
+    from repro_torch.sharding.spmd import is_dtensor
+
+    return is_dtensor(x)
+
+
+def full(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor's full value (reduced, gathered) as a plain tensor; any
+    other tensor as it is."""
+    return x.full_tensor() if _is_dtensor(x) else x
+
+
+def to_layout(g: Optional[torch.Tensor], like: torch.Tensor) -> Optional[torch.Tensor]:
+    """The DTensor ``g`` redistributed to ``like``'s placements."""
+    if g is None or not _is_dtensor(g) or tuple(g.placements) == tuple(like.placements):
+        return g
+    return g.redistribute(like.device_mesh, like.placements)
+
+
 def global_norm(tree: Union[Tree, Iterable[Optional[torch.Tensor]]]) -> torch.Tensor:
     """The float32 norm of every leaf together (each leaf's norm summed in
     float32, then the norm of those); a None leaf (a parameter that took no
-    gradient) counts as zeros."""
+    gradient) counts as zeros. A DTensor leaf's norm is that of its full
+    value, reduced over the mesh."""
     leaves = [x for x in (tree.values() if isinstance(tree, dict) else tree) if x is not None]
     return torch.linalg.vector_norm(torch.stack(
-        [torch.linalg.vector_norm(x, dtype=torch.float32) for x in leaves]))
+        [full(torch.linalg.vector_norm(x, dtype=torch.float32)) for x in leaves]))
 
 
 @torch.no_grad()
@@ -72,7 +93,12 @@ def update(cfg: AdamWConfig, grads: Dict[str, Optional[torch.Tensor]], state: Ad
     """One AdamW step of ``params`` by ``grads`` (a None gradient is zeros,
     as the reference's gradient of an unused parameter). The parameters and
     the moments are written in place, leaf by leaf, so that the step holds
-    no second copy of them; returns (params, the new state)."""
+    no second copy of them; returns (params, the new state).
+
+    On a mesh the gradients and moments are DTensors in the moments'
+    layout (``to_layout``) and the parameters DTensors in their own: each
+    leaf's update is computed in the moment's layout and redistributed to
+    the parameter's before it is applied."""
     step = state.step + 1
     stepf = step.float()
     lr = schedule(cfg, step)
@@ -87,7 +113,7 @@ def update(cfg: AdamWConfig, grads: Dict[str, Optional[torch.Tensor]], state: Ad
         v.mul_(cfg.b2).addcmul_(g, g, value=1 - cfg.b2)           # b2 v + (1 - b2) g^2
         del g
         pf = p.float()                                            # p itself if float32
-        delta = (m / bias1).div_((v / bias2).sqrt_().add_(cfg.eps))
+        delta = to_layout((m / bias1).div_((v / bias2).sqrt_().add_(cfg.eps)), p)
         delta.add_(pf, alpha=cfg.weight_decay).mul_(lr)
         if pf is p:
             p.sub_(delta)

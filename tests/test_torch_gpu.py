@@ -365,3 +365,30 @@ def test_train_step_on_card_matches_cpu(cuda, arch):
     for (n, p), q in zip(cpu.model.named_parameters(), card.model.parameters()):
         np.testing.assert_allclose(q.detach().cpu().numpy(), p.detach().numpy(),
                                    rtol=1e-4, atol=1e-5, err_msg=n)
+
+
+@pytest.mark.gpu
+def test_sharded_paths_on_two_ranks_sharing_the_card(cuda):
+    """A world of 2 gloo ranks on the one card: Ulysses through K1 and the
+    chunk-parallel scan through K3 (each rank launching its kernel), at the
+    smoke shapes, against the kernels unsharded on the same inputs."""
+    from repro_torch.kernels import _build
+    from repro_torch.launch import shard_check as sc
+    _build.build()                      # the ranks load it; none builds it
+    attn = [sc.AttnCase("causal", 2, 256, 4, 64, causal=True, dtype="bfloat16", seed=1),
+            sc.AttnCase("bidir", 1, 192, 2, 128, dtype="bfloat16", seed=2)]
+    scan = [sc.ScanCase("rwkv6", 1, 4, 256, 64, 64, True, dtype="bfloat16", seed=3),
+            sc.ScanCase("zamba2", 1, 4, 256, 64, 64, False, layout="zamba2",
+                        dtype="bfloat16", seed=4)]
+    res = sc.run(2, sc.suite_ranks, attn, scan, device="cuda", threads=0)
+    assert [r["ulysses"]["launches"]["flash_attention"] for r in res] == [len(attn)] * 2
+    assert [r["scan"]["launches"]["ssm_scan"] for r in res] == [2 * len(scan)] * 2
+    for case, got in zip(attn, res[0]["ulysses"]["outputs"]):
+        q, k, v = sc.attn_inputs(case, "cuda")
+        _assert_attention_close(got.cuda(), tfa.flash_attention(q, k, v, causal=case.causal))
+    for case, (out, state) in zip(scan, res[0]["scan"]["outputs"]):
+        q, k, v, decay, bonus = sc.scan_inputs(case, "cuda")
+        want_out, want_state = tss.ssm_scan(q, k, v, decay, bonus=bonus)
+        torch.testing.assert_close(out.cuda().float(), want_out.float(), atol=BF16_TOL,
+                                   rtol=BF16_TOL)
+        torch.testing.assert_close(state.cuda(), want_state, atol=1e-4, rtol=1e-4)

@@ -413,8 +413,12 @@ def test_launch_train_runs_on_the_cpu_and_refuses_a_mesh(capsys):
     assert [r["step"] for r in rows] == [0, 1, 2] and int(state.opt.step) == 3
     assert all(np.isfinite(r["loss"]) and r["ms"] > 0 for r in rows)
     assert "step    2" in capsys.readouterr().out
-    for extra in (["--mesh", "2x1"], ["--opt", "zero"]):
-        with pytest.raises(SystemExit, match="sharding"):
+    # a mesh the world cannot hold is refused (one process is a world of 1;
+    # tests/test_torch_sharding.py runs --mesh 2x1 under torchrun), as is an
+    # unknown switch
+    for extra, match in ((["--mesh", "2x1"], "world size is 1"),
+                         (["--opt", "zero,tp"], "switches are")):
+        with pytest.raises(SystemExit, match=match):
             tlaunch.main(argv + extra)
 
 
