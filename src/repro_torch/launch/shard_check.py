@@ -21,20 +21,14 @@ The rank functions:
   along L, and the final state);
 * ``train_ranks`` — each case's model trained ``steps`` steps unsharded (on
   rank 0) and sharded on its mesh from the same seed (or the same given
-  state); returns the relative errors of the loss and gradient norm, each
-  parameter's and moment's largest error, and tokens whose set of experts
-  differs.
+  state); returns the relative errors of the loss and gradient norm, the
+  largest errors of the parameters, of their updates and of the moments,
+  and the tokens whose set of experts differs.
 
-Each also returns the rank's kernel launches (``ops.LAUNCHES``). ``FAULTS``
-are known faults the checks must reject: a ladder that does not decay the
-prefix, and a Ulysses with its all-to-all axes swapped.
-
-  PYTHONPATH=src python -m repro_torch.launch.shard_check --device cpu --world 2
+Each also returns the rank's kernel launches (``ops.LAUNCHES``).
 """
 from __future__ import annotations
 
-import argparse
-import contextlib
 import dataclasses
 import math
 import os
@@ -49,34 +43,6 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 import torch
 
 from repro_torch.kernels.ssm_scan import MAX_NEG_LOGW
-
-FAULTS = ("ladder_no_decay", "a2a_swapped")
-
-
-@contextlib.contextmanager
-def fault(name: Optional[str]):
-    """Inside the block ``sequence_parallel`` carries the known fault
-    ``name`` (None: none): "ladder_no_decay" adds each rank's chunk state to
-    the prefix without decaying the prefix; "a2a_swapped" swaps Ulysses'
-    two all-to-alls (sequence and head axes exchanged)."""
-    from repro_torch.sharding import sequence_parallel as sp
-
-    saved = (sp._ladder, sp._seq_to_heads, sp._heads_to_seq)
-    if name == "ladder_no_decay":
-        def ladder(every, rank):
-            carry = torch.zeros_like(every[0, ..., :-1])
-            for i in range(rank):
-                carry = carry + every[i, ..., :-1]
-            return carry
-        sp._ladder = ladder
-    elif name == "a2a_swapped":
-        sp._seq_to_heads, sp._heads_to_seq = sp._heads_to_seq, sp._seq_to_heads
-    elif name is not None:
-        raise ValueError(f"unknown fault {name!r}; known: {FAULTS}")
-    try:
-        yield
-    finally:
-        sp._ladder, sp._seq_to_heads, sp._heads_to_seq = saved
 
 
 def _entry(rank: int, world: int, path: str, device: str, backend: str, threads: int,
@@ -173,61 +139,6 @@ def run(world: int, fn: Callable, *args, device: str = "cpu", threads: int = 1,
     """``World(...).wait()``: every rank's result, in rank order."""
     return World(world, fn, *args, device=device, threads=threads, timeout=timeout,
                  backend=backend).wait()
-
-
-COLLECTIVES = ("all_reduce", "reduce_scatter_tensor", "all_gather_into_tensor",
-               "all_to_all_single")
-
-
-def collectives_ranks(rank: int, world: int, device: torch.device, functional: bool,
-                      names: Sequence[str] = COLLECTIVES, numel: int = 2 ** 20) -> dict:
-    """Each collective of ``names`` once on ``numel`` float32 elements of
-    ``device`` over the world, called directly (``torch.distributed``) or,
-    with ``functional``, as DTensor calls them
-    (``torch.distributed._functional_collectives``, then waited on) ->
-    {name: the host seconds it took}. A collective the backend cannot run
-    on the device raises, or ends the rank."""
-    import torch.distributed as dist
-    import torch.distributed._functional_collectives as fc
-
-    group = dist.group.WORLD
-    x = torch.full((numel,), float(rank + 1), device=device)
-    calls = {
-        "all_reduce": (lambda: fc.all_reduce(x, "sum", group)) if functional else
-        (lambda: dist.all_reduce(x.clone())),
-        "reduce_scatter_tensor": (lambda: fc.reduce_scatter_tensor(x, "sum", 0, group))
-        if functional else (lambda: dist.reduce_scatter_tensor(x.new_empty(numel // world), x)),
-        "all_gather_into_tensor": (lambda: fc.all_gather_tensor(x, 0, group)) if functional else
-        (lambda: dist.all_gather_into_tensor(x.new_empty(numel * world), x)),
-        "all_to_all_single": (lambda: fc.all_to_all_single(x, None, None, group)) if functional
-        else (lambda: dist.all_to_all_single(torch.empty_like(x), x)),
-    }
-    out = {}
-    for name in names:
-        t0 = time.perf_counter()
-        got = calls[name]()
-        if functional:
-            fc.wait_tensor(got)
-        if device.type == "cuda":
-            torch.cuda.synchronize()
-        out[name] = time.perf_counter() - t0
-    return out
-
-
-def probe_collectives(world: int, device: str) -> Dict[str, Any]:
-    """Which collectives gloo runs on ``device`` tensors, each direct and
-    functional call in a world of its own (a rank that dies ends only its
-    world) -> {"direct all_reduce": seconds or the error, ...}."""
-    out = {}
-    for functional in (False, True):
-        for name in COLLECTIVES:
-            key = f"{'functional' if functional else 'direct'} {name}"
-            try:
-                out[key] = run(world, collectives_ranks, functional, (name,), device=device,
-                               threads=0, timeout=300)[0][name]
-            except (RuntimeError, TimeoutError) as e:
-                out[key] = str(e).strip().splitlines()[-1][:200]
-    return out
 
 
 def _launches() -> Dict[str, int]:
@@ -377,30 +288,25 @@ def case_config(case: TrainCase):
     return cfg
 
 
-class _Routes:
-    """Records each ``moe.route`` call's expert index, as the sets of experts
-    per token (sorted), on the CPU."""
+class _Experts(torch.overrides.TorchFunctionMode):
+    """Records the expert index of every ``torch.topk`` call inside the
+    block (the MoE routing's only one), as each token's set of experts
+    (sorted), on the CPU."""
 
     def __init__(self):
-        from repro_torch.models import moe
-        self.moe, self.real, self.seen = moe, moe.route, []
+        super().__init__()
+        self.seen = []
 
-    def __enter__(self):
-        def recorded(*a, **kw):
-            out = self.real(*a, **kw)
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if func is torch.topk:
             self.seen.append(torch.sort(out[1].detach(), dim=-1).values.cpu())
-            return out
-        self.moe.route = recorded
-        return self
-
-    def __exit__(self, *exc):
-        self.moe.route = self.real
-        return False
+        return out
 
 
-def _train(cfg, case: TrainCase, device, mesh, state_arrays) -> tuple:
-    """(state, per-step metrics as floats, recorded routes, the names of the
-    parameters that were all zeros before the first step)."""
+def _train(cfg, case: TrainCase, device, mesh, state_arrays, init: bool = False) -> tuple:
+    """(state, per-step metrics as floats, the recorded expert sets, the
+    parameters before the first step if ``init``)."""
     from repro_torch import convert
     from repro_torch.data import pipeline
     from repro_torch.models import transformer
@@ -415,13 +321,13 @@ def _train(cfg, case: TrainCase, device, mesh, state_arrays) -> tuple:
         state = convert.from_jax_state(cfg, *state_arrays, device=device)
         if mesh is not None:
             state = loop.shard_state(cfg, state, mesh, zero="zero" in opts, fsdp="fsdp" in opts)
-    zeros = {n for n, p in state.params.items() if not bool(p.detach().any())}
+    before = {n: p.detach().clone() for n, p in state.params.items()} if init else None
     step = loop.make_train_step(cfg)
     rows = []
     if "seqshard" in opts and mesh is not None:
         transformer.set_activation_sharding(partition.P("data", "model", None))
     try:
-        with _Routes() as routes:
+        with _Experts() as experts:
             for i in range(case.steps):
                 batch = pipeline.to_tensors(pipeline.synthetic_batch(
                     cfg, pipeline.DataConfig(batch=case.batch, seq_len=case.seq), i), device)
@@ -429,11 +335,39 @@ def _train(cfg, case: TrainCase, device, mesh, state_arrays) -> tuple:
                 rows.append({k: float(v) for k, v in m.items()})
     finally:
         transformer.set_activation_sharding(None)
-    return state, rows, routes.seen, zeros
+    return state, rows, experts.seen, before
+
+
+def _gather_experts(seen: list, want: Optional[list]) -> list:
+    """Every rank's recorded expert sets -> on rank 0 (``want``: its
+    unsharded run's), each call's sets over the whole batch: rank 0's where
+    it routed every group, else each batch shard's once, in the order
+    ranks first hold them (the ranks that hold one shard record the same
+    sets, and DTensor deals the shards out in rank order)."""
+    import torch.distributed as dist
+
+    if dist.get_world_size() == 1:
+        return seen
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, seen)
+    if want is None:
+        return []
+    out = []
+    for c, w in enumerate(want):
+        shards = []
+        for part in (e[c] for e in every):
+            if not any(torch.equal(part, s) for s in shards):
+                shards.append(part)
+        out.append(shards[0] if shards[0].shape == w.shape else torch.cat(shards))
+    return out
 
 
 def _rel(a: float, b: float) -> float:
     return abs(a - b) / max(abs(b), 1e-30)
+
+
+def _rms(t: torch.Tensor) -> float:
+    return max(t.float().pow(2).mean().sqrt().item(), 1e-30)
 
 
 def train_ranks(rank: int, world: int, device: torch.device, cases: Sequence[TrainCase],
@@ -442,20 +376,25 @@ def train_ranks(rank: int, world: int, device: torch.device, cases: Sequence[Tra
     seed, or from ``state_arrays[arch]`` (the reference's (params, mu, nu,
     step) as numpy, through ``convert.from_jax_state``) -> one row per case
     on rank 0: the loss, nll, aux and gradient norm of each step on both
-    sides (``steps``), the largest relative error of the loss and gradient
-    norm, each tensor's largest error after the last step (``params``:
-    max |err| / rms over the parameters that were not all zeros before the
-    first step, with the name of the worst; ``zero_init_abs``: max |err|
-    over those that were (norm weights, which then hold only AdamW's steps
-    of lr * g / (|g| + eps), where a gradient's rounding near 0 moves a
-    value by up to lr); ``params_abs``: max |err| over all; ``moments``:
-    max |err| / max |want|: g^2 and an embedding's gradients are heavy-tailed,
-    so an error relative to their rms reads their largest values' rounding),
-    the tokens whose set of experts differs (``topk_differ`` of ``tokens``),
-    the host seconds of each side and the launches. On ``cuda`` TF32 is off
-    and each side's ops are deterministic (the MoE's gathers sum their
-    backward by atomics otherwise, in an order that changes from run to
-    run)."""
+    sides (``steps``), the largest relative error of the loss, gradient
+    norm and aux loss (absolute where the aux loss is 0), and each tensor's largest error after the last step, with the
+    name of the worst: ``params``, max |err| / rms(want) over the
+    parameters that were not all zeros before the first step; ``updates``,
+    rms(err) / rms(want - before) over every parameter, the error against
+    the steps taken (while the learning rate is small a parameter's value
+    hides its steps), and ``updates_max``, the same with max |err| (AdamW's
+    step lr * g / (|g| + eps) turns a gradient's rounding near |g| ~ eps
+    into a change of the order of the step, so the largest element reads
+    that rounding); ``moments``, max |err| / (|want| + rms(want)) over
+    both AdamW moments, each element against its own value and, near zero,
+    against the tensor's rms, and ``moments_of_max``, max |err| /
+    max |want| (g^2 and an embedding's gradient are heavy-tailed). Also
+    the tokens whose set of experts differs (``topk_differ`` of
+    ``tokens``), the routing groups rank 0 routed in the sharded step
+    against all of them (``groups``), the host seconds of each side and
+    the launches. On ``cuda`` TF32 is off and each side's ops are
+    deterministic (the MoE's gathers sum their backward by atomics
+    otherwise, in an order that changes from run to run)."""
     import torch.distributed as dist
 
     from repro_torch.launch import mesh as mesh_lib
@@ -473,54 +412,73 @@ def train_ranks(rank: int, world: int, device: torch.device, cases: Sequence[Tra
         before = _launches()
         t0 = time.perf_counter()
         if rank == 0:
-            ref_state, ref_rows, ref_routes, zeros = _train(cfg, case, device, None, arrays)
+            ref_state, ref_rows, ref_experts, init = _train(cfg, case, device, None, arrays,
+                                                            init=True)
+            zeros = {n for n, p in init.items() if not bool(p.any())}
             want = {"params": {n: p.detach() for n, p in ref_state.params.items()},
-                    "mu": ref_state.opt.mu, "nu": ref_state.opt.nu}
-            del ref_state
+                    "mu": ref_state.opt.mu, "nu": ref_state.opt.nu,
+                    "step_rms": {n: _rms(p.detach() - init[n])
+                                 for n, p in ref_state.params.items()}}
+            del ref_state, init
             if device.type == "cuda":
                 torch.cuda.empty_cache()
         t1 = time.perf_counter()
         dist.barrier()
         mesh = mesh_lib.build(mesh_lib.MeshShape(mesh_lib.AXES, tuple(case.mesh)), device.type)
         t2 = time.perf_counter()
-        state, rows, routes, _ = _train(cfg, case, device, mesh, arrays)
+        state, rows, experts, _ = _train(cfg, case, device, mesh, arrays)
         if device.type == "cuda":
             torch.cuda.synchronize()
         t3 = time.perf_counter()
+        groups = sum(int(t.shape[0]) for t in experts)       # routed on this rank
+        experts = _gather_experts(experts, ref_experts if rank == 0 else None)
         row = {"arch": case.arch, "mesh": "x".join(map(str, case.mesh)),
                "opts": ",".join(case.opts), "world": world,
                "backend": dist.get_backend(),
                "host_s": {"unsharded": t1 - t0, "sharded": t3 - t2}}
-        errs = {"params": 0.0, "worst_param": None, "params_abs": 0.0, "zero_init_abs": 0.0,
-                "moments": 0.0}
+        errs = {k: (0.0, None) for k in ("params", "updates", "updates_max", "moments",
+                                         "moments_of_max")}
+
+        def worst(kind: str, err: float, name: str) -> None:
+            if err >= errs[kind][0]:
+                errs[kind] = (err, name)
         for name, p in state.params.items():
             pairs = (("params", p.full_tensor()), ("mu", state.opt.mu[name].full_tensor()),
                      ("nu", state.opt.nu[name].full_tensor()))
             for kind, got in pairs:
                 if rank == 0:
                     w = want[kind][name].float()
-                    d = (got.float() - w).abs().max().item()
-                    rms = max(w.pow(2).mean().sqrt().item(), 1e-30)
-                    if kind == "params" and name in zeros:
-                        errs["zero_init_abs"] = max(errs["zero_init_abs"], d)
-                    elif kind == "params" and d / rms >= errs["params"]:
-                        errs["params"], errs["worst_param"] = d / rms, name
+                    d = (got.float() - w).abs()
                     if kind == "params":
-                        errs["params_abs"] = max(errs["params_abs"], d)
+                        dmax = d.max().item()
+                        if name not in zeros:
+                            worst("params", dmax / _rms(w), name)
+                        worst("updates", _rms(d) / want["step_rms"][name], name)
+                        worst("updates_max", dmax / want["step_rms"][name], name)
                     else:
-                        errs["moments"] = max(errs["moments"],
-                                              d / max(w.abs().max().item(), 1e-30))
+                        worst("moments", (d / (w.abs() + _rms(w))).max().item(),
+                              f"{kind} {name}")
+                        worst("moments_of_max", d.max().item() / max(w.abs().max().item(), 1e-30),
+                              f"{kind} {name}")
+                    del w, d
                 del got
         del state
         if rank == 0:
             row["steps"] = [{"want": a, "got": b} for a, b in zip(ref_rows, rows)]
             row["loss"] = max(_rel(b["loss"], a["loss"]) for a, b in zip(ref_rows, rows))
-            row["grad_norm"] = max(_rel(b["grad_norm"], a["grad_norm"])
-                                   for a, b in zip(ref_rows, rows))
-            row.update(errs)
-            differ = sum(int((a != b).any(-1).sum()) for a, b in zip(ref_routes, routes))
-            row["topk_differ"] = differ
-            row["tokens"] = sum(int(a.shape[0] * a.shape[1]) for a in ref_routes)
+            for key in ("grad_norm", "aux"):
+                row[key] = max(_rel(b[key], a[key]) if a[key] else abs(b[key])
+                               for a, b in zip(ref_rows, rows))
+            for kind, (err, name) in errs.items():
+                row[kind], row[f"worst_{kind}"] = err, name
+            if [a.shape for a in ref_experts] != [b.shape for b in experts]:
+                raise RuntimeError(f"{case.arch}: the sharded step routed other groups: "
+                                   f"{[a.shape for a in ref_experts]} against "
+                                   f"{[b.shape for b in experts]}")
+            row["topk_differ"] = sum(int((a != b).any(-1).sum())
+                                     for a, b in zip(ref_experts, experts))
+            row["tokens"] = sum(int(a.shape[0] * a.shape[1]) for a in ref_experts)
+            row["groups"] = {"rank0": groups, "all": sum(int(a.shape[0]) for a in ref_experts)}
             row["launches"] = _delta(before)
             out.append(row)
             del want
@@ -532,84 +490,9 @@ def train_ranks(rank: int, world: int, device: torch.device, cases: Sequence[Tra
 
 def suite_ranks(rank: int, world: int, device: torch.device, attn: Sequence[AttnCase] = (),
                 scan: Sequence[ScanCase] = (), train: Sequence[TrainCase] = (),
-                state_arrays: Optional[dict] = None, faults: bool = False) -> dict:
+                state_arrays: Optional[dict] = None) -> dict:
     """``ulysses_ranks``, ``scan_ranks`` and ``train_ranks`` in one world ->
-    {"ulysses", "scan", "train"}; with ``faults`` also "faults": the first
-    Ulysses case under "a2a_swapped" and the first scan case under
-    "ladder_no_decay", and "uneven": the error ``shard_sequence`` raises on
-    a length that does not divide over the ranks."""
-    from repro_torch.sharding import sequence_parallel as sp
-
-    out = {"ulysses": ulysses_ranks(rank, world, device, attn),
-           "scan": scan_ranks(rank, world, device, scan),
-           "train": train_ranks(rank, world, device, train, state_arrays)}
-    if faults:
-        with fault("a2a_swapped"):
-            bad_attn = ulysses_ranks(rank, world, device, attn[:1])
-        with fault("ladder_no_decay"):
-            bad_scan = scan_ranks(rank, world, device, scan[:1])
-        out["faults"] = {"a2a_swapped": bad_attn, "ladder_no_decay": bad_scan}
-        try:
-            sp.shard_sequence(torch.zeros(1, world + 1, 2), _model_mesh(world, device))
-            out["uneven"] = None
-        except ValueError as e:
-            out["uneven"] = str(e)
-    return out
-
-
-def main(argv: Optional[Sequence[str]] = None) -> dict:
-    """The checks at smoke size on a world of ``--world`` ranks: Ulysses
-    (causal and not, softcap), the scan (bonus or not, at the floor) and the
-    train step of deepseek-moe, yi-9b and rwkv6 on every mesh the world
-    allows (on the card: at world 1 under NCCL); one line per check with its
-    largest error. ``--probe`` lists instead which collectives gloo runs on
-    the device's tensors."""
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--device", default=None, help="cuda (default) or cpu")
-    ap.add_argument("--world", type=int, default=2)
-    ap.add_argument("--probe", action="store_true",
-                    help="only list which collectives gloo runs on the device's tensors")
-    args = ap.parse_args(argv)
-    from repro_torch import device as _device
-    from repro_torch.kernels import ops, ref
-
-    dev = _device.resolve(args.device).type
-    n = args.world
-    if args.probe:
-        report = probe_collectives(n, dev)
-        for k, v in report.items():
-            print(f"{k}: {v}", flush=True)
-        return report
-    attn = [AttnCase("causal", 2, 8 * n, 2 * n, 16, causal=True, seed=1),
-            AttnCase("softcap", 1, 8 * n, n, 16, softcap=5.0, seed=2)]
-    got = run(n, ulysses_ranks, attn, device=dev)[0]["outputs"]
-    report = {}
-    for case, full in zip(attn, got):
-        q, k, v = attn_inputs(case, dev)
-        want = ops.flash_attention(q, k, v, causal=case.causal, softcap=case.softcap)
-        report[f"ulysses {case.name}"] = (full.to(dev).float() - want.float()).abs().max().item()
-    scans = [ScanCase("bonus", 1, 3, 16 * n, 8, 8, True, seed=3),
-             ScanCase("inclusive", 1, 3, 16 * n, 8, 8, False, layout="zamba2", seed=4),
-             ScanCase("floor", 1, 3, 16 * n, 8, 8, True, floor=True, seed=5)]
-    got = run(n, scan_ranks, scans, device=dev)[0]["outputs"]
-    for case, (full, state) in zip(scans, got):
-        q, k, v, decay, bonus = scan_inputs(case, dev)
-        w_out, w_state = ref.ssm_scan_ref(q, k, v, decay, bonus)
-        report[f"scan {case.name}"] = max((full.to(dev) - w_out).abs().max().item(),
-                                          (state.to(dev) - w_state).abs().max().item())
-    # on the card the train step runs at world 1 under NCCL: gloo's functional
-    # all-gather on CUDA tensors ends the rank in torch 2.11 (--probe)
-    world, backend = (n, "gloo") if dev == "cpu" else (1, "nccl")
-    meshes = [(world // m, m) for m in (1, world) if world % m == 0]
-    cases = [TrainCase(a, mesh, opts) for a in ("deepseek-moe-16b", "yi-9b", "rwkv6-3b")
-             for mesh in dict.fromkeys(meshes) for opts in ((), ("zero",))]
-    for row in run(world, train_ranks, cases, device=dev, backend=backend)[0]:
-        report[f"train {row['arch']} {row['mesh']} {row['opts']}"] = max(
-            row["loss"], row["grad_norm"], row["moments"])
-    for k, v in report.items():
-        print(f"{k}: {v:.3g}", flush=True)
-    return report
-
-
-if __name__ == "__main__":
-    main()
+    {"ulysses", "scan", "train"}."""
+    return {"ulysses": ulysses_ranks(rank, world, device, attn),
+            "scan": scan_ranks(rank, world, device, scan),
+            "train": train_ranks(rank, world, device, train, state_arrays)}

@@ -19,8 +19,10 @@ fsdp: the parameters too; seqshard: the residual stream sharded over
 partition rules (``sharding.partition``) over a ``torch.distributed`` world
 started by ``torchrun``; the mesh must hold exactly its ranks (one process
 alone is a world of 1). The backend (``--backend``) is ``nccl`` on ``cuda``
-where each rank has a card of its own, else ``gloo`` (the CPU, or several
-ranks sharing one card); the first line prints it. In torch 2.11 gloo's
+where each of a node's ranks (``LOCAL_WORLD_SIZE``) has a card of its own,
+else ``gloo`` (the CPU, or several ranks sharing a card); the first line
+prints it, and on ``cuda`` how many ranks share each card. nccl with more
+ranks on a node than cards is refused. In torch 2.11 gloo's
 functional all-gather on CUDA tensors, which DTensor's redistributions
 call, ends the rank (SIGSEGV), so ranks sharing a card cannot run the
 sharded step there; on the CPU they can. Rank 0 prints the step lines.
@@ -78,10 +80,28 @@ def run(cfg: ModelConfig, steps: int, batch: int, seq: int, device=None, log_eve
     return state, rows
 
 
-def default_backend(dev: torch.device, world: int) -> str:
-    """``nccl`` on ``cuda`` when each rank has a card of its own, else
-    ``gloo`` (NCCL does not put two ranks on one card)."""
-    return "nccl" if dev.type == "cuda" and world <= torch.cuda.device_count() else "gloo"
+def local_world() -> int:
+    """The ranks on this node: ``LOCAL_WORLD_SIZE`` (``torchrun`` sets it),
+    else the world size."""
+    return int(os.environ.get("LOCAL_WORLD_SIZE", os.environ.get("WORLD_SIZE", "1")))
+
+
+def default_backend(dev: torch.device, local: int) -> str:
+    """``nccl`` on ``cuda`` when each of this node's ``local`` ranks has a
+    card of its own, else ``gloo`` (NCCL does not put two ranks on one
+    card)."""
+    return "nccl" if dev.type == "cuda" and local <= torch.cuda.device_count() else "gloo"
+
+
+def card_of_rank(dev: torch.device, backend: str) -> torch.device:
+    """This rank's card: ``LOCAL_RANK``'s, or under gloo with more ranks on
+    the node than cards, the cards shared in turn; nccl with more ranks on
+    the node than cards is refused."""
+    local, cards = local_world(), torch.cuda.device_count()
+    if local > cards and backend == "nccl":
+        raise SystemExit(f"--backend nccl: {local} ranks on this node and {cards} card(s); "
+                         f"NCCL puts one rank on each card (--backend gloo shares them)")
+    return torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")) % cards)
 
 
 def _start_world(backend: Optional[str], dev: torch.device) -> Tuple[str, torch.device, bool]:
@@ -92,11 +112,9 @@ def _start_world(backend: Optional[str], dev: torch.device) -> Tuple[str, torch.
 
     if dist.is_initialized():
         return dist.get_backend(), dev, False
-    world = int(os.environ.get("WORLD_SIZE", "1"))
-    backend = backend or default_backend(dev, world)
+    backend = backend or default_backend(dev, local_world())
     if dev.type == "cuda":
-        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0"))
-                           % torch.cuda.device_count())
+        dev = card_of_rank(dev, backend)
         torch.cuda.set_device(dev)
     if "MASTER_ADDR" in os.environ:
         dist.init_process_group(backend)
@@ -150,9 +168,11 @@ def main(argv: Optional[Sequence[str]] = None) -> Tuple[loop.TrainState, List[di
                                  f"{world} (start it with torchrun --nproc-per-node {d * m})")
             mesh = mesh_lib.build(mesh_lib.MeshShape(mesh_lib.AXES, (d, m)), dev.type)
             if rank == 0:
+                shared = (f" ranks_per_card={-(-local_world() // torch.cuda.device_count())}"
+                          if dev.type == "cuda" else "")
                 print(f"arch={cfg.name} layers={cfg.num_layers} batch={args.batch} "
                       f"seq={args.seq} device={dev} mesh={d}x{m} world={world} "
-                      f"backend={backend} opts={sorted(opts)}", flush=True)
+                      f"backend={backend} opts={sorted(opts)}{shared}", flush=True)
             state, rows = run(cfg, args.steps, args.batch, args.seq, dev, args.log_every,
                               mesh=mesh, opts=opts, verbose=rank == 0)
         finally:

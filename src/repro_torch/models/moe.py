@@ -85,9 +85,10 @@ def route(cfg: ModelConfig, router: torch.Tensor, xg: torch.Tensor):
 
 
 def _dispatch(cfg: ModelConfig, xg: torch.Tensor, router: torch.Tensor):
-    """Routing of the groups xg (G, S, D) -> (the expert batch xe (E, G * C,
-    D), expert index (G, S, k), gates (G, S, k), slot (G, S, k), the
-    load-balance aux loss)."""
+    """Routing of the groups xg (G, S, D) -> (each group's expert slots
+    (G, E * C, D), expert index (G, S, k), gates (G, S, k), slot (G, S, k),
+    and the load-balance loss's two means over the groups' tokens, each
+    (1, E): the top-1 expert's density and the router's probabilities)."""
     g_n, s, d = xg.shape
     e = cfg.num_experts
     cap = capacity(cfg, s)
@@ -100,21 +101,17 @@ def _dispatch(cfg: ModelConfig, xg: torch.Tensor, router: torch.Tensor):
     slot_token[((gi * e + idx) * cap + pos)[keep]] = si[keep]
     rows = torch.cat([xg, xg.new_zeros((g_n, 1, d))], 1)          # (G, S + 1, D)
     xe = torch.gather(rows, 1, slot_token.view(g_n, e * cap, 1).expand(-1, -1, d))
-    xe = xe.view(g_n, e, cap, d).transpose(0, 1).reshape(e, g_n * cap, d)
-
-    # load-balance auxiliary loss (Switch eq. 4)
-    density = F.one_hot(idx[..., 0], e).float().mean(dim=(0, 1))
-    aux = torch.sum(density * probs.mean(dim=(0, 1))) * e * cfg.router_aux_weight
-    return xe, idx, gates, pos, aux
+    density = F.one_hot(idx[..., 0], e).float().mean(dim=(0, 1))[None]
+    return xe, idx, gates, pos, density, probs.mean(dim=(0, 1))[None]
 
 
-def _combine(ye: torch.Tensor, idx: torch.Tensor, gates: torch.Tensor, pos: torch.Tensor,
+def _combine(yg: torch.Tensor, idx: torch.Tensor, gates: torch.Tensor, pos: torch.Tensor,
              dtype: torch.dtype) -> torch.Tensor:
-    """Each token's kept slots of ye (E, G, C, D), weighted by its gates in
+    """Each token's kept slots of yg (G, E, C, D), weighted by its gates in
     the activations' dtype -> (G, S, D)."""
-    cap = ye.shape[2]
+    cap = yg.shape[2]
     gi = torch.arange(idx.shape[0], device=idx.device)[:, None, None].expand_as(idx)
-    yk = ye[idx, gi, torch.clamp(pos, max=cap - 1)]              # (G, S, k, D)
+    yk = yg[gi, idx, torch.clamp(pos, max=cap - 1)]              # (G, S, k, D)
     w = gates.to(dtype).float()[..., None]
     return (yk.float() * w).sum(2).to(dtype)
 
@@ -123,25 +120,35 @@ def moe_ffn(cfg: ModelConfig, layer: MoE, x: torch.Tensor) -> Tuple[torch.Tensor
     """x: (B, L, D) -> (out (B, L, D), load-balance aux loss (f32 scalar)).
 
     On a mesh the grouping, the routing and the combine (topk, cumsum, the
-    boolean scatter and the gathers have no DTensor strategy) run on the
-    whole, replicated groups; the experts' products run on the
-    expert-sharded weights (expert parallelism)."""
+    boolean scatter and the gathers have no DTensor strategy) run on each
+    rank's own groups where every batch shard of x holds whole groups (its
+    tokens a multiple of the group length), else on the whole, replicated
+    groups; the experts' products run on the expert-sharded weights (expert
+    parallelism), and the load-balance loss takes its means over every
+    group."""
     b, l, d = x.shape
     t = b * l
     e = cfg.num_experts
     s = _group_size(t)
     g_n = t // s
     cap = capacity(cfg, s)
-    xg = spmd.local(lambda x_: x_.reshape(g_n, s, d), x, whole=True)
-    xe, idx, gates, pos, aux = spmd.local(lambda xg_, r_: _dispatch(cfg, xg_, r_), xg,
-                                          layer.router, whole=True)
+    whole = (b // spmd.shards(x, 0)) * l % s != 0
+    xg = spmd.local(lambda x_: x_.reshape(-1, s, d), x, whole=whole)
+    xe, idx, gates, pos, density, pmean = spmd.local(
+        lambda xg_, r_: _dispatch(cfg, xg_, r_), xg, layer.router, shared=(1,), whole=whole)
+    xe = xe.view(g_n, e, cap, d).transpose(0, 1).reshape(e, g_n * cap, d)
     gg = torch.bmm(xe, layer.w_gate)
     uu = torch.bmm(xe, layer.w_up)
     h = F.silu(gg.float()).to(xe.dtype) * uu
     del gg, uu, xe                  # free the expert batch before the combine (llama4's prefill)
     ye = torch.bmm(h, layer.w_down).view(e, g_n, cap, d)          # (E, G, C, D)
     del h
-    y = spmd.local(lambda *a: _combine(*a, x.dtype), ye, idx, gates, pos, whole=True)
+    y = spmd.local(lambda *a: _combine(*a, x.dtype), ye.transpose(0, 1), idx, gates, pos,
+                   whole=whole)
     if cfg.num_shared_experts:
         y = y + common.swiglu(xg, layer.shared_gate, layer.shared_up, layer.shared_down)
-    return y.reshape(b, l, d), aux
+
+    # load-balance auxiliary loss (Switch eq. 4); each rank's means are over
+    # as many tokens, so their mean is the mean over every group
+    aux = torch.sum(density.mean(0) * pmean.mean(0)) * e * cfg.router_aux_weight
+    return spmd.local(lambda y_: y_.reshape(-1, l, d), y, whole=whole), aux

@@ -24,6 +24,21 @@ def is_dtensor(x) -> bool:
     return isinstance(x, DTensor)
 
 
+def shards(x, dim: int) -> int:
+    """How many shards a DTensor ``x`` is cut into along tensor dimension
+    ``dim`` (the product of the mesh dimensions that shard it); 1 for any
+    other tensor."""
+    if not is_dtensor(x):
+        return 1
+    from torch.distributed.tensor import Shard
+
+    n = 1
+    for i, p in enumerate(x.placements):
+        if isinstance(p, Shard) and p.dim == dim:
+            n *= x.device_mesh.size(i)
+    return n
+
+
 def local(fn: Callable, *args, keep: Sequence[int] = (0,), shared: Sequence[int] = (),
           whole: bool = False):
     """``fn`` on the local tensors of ``args``, for a region of ops without

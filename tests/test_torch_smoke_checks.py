@@ -1121,15 +1121,21 @@ def test_sharding_phase_checks_pass_the_sharded_paths_and_reject_their_faults():
     gathered Ulysses output and the chunk-parallel scan pass (each against
     its unsharded plain version, at K1's and K3's limits); a Ulysses whose
     all-to-alls swap the sequence and head axes, and a ladder that does not
-    decay the prefix, are rejected. Phase 14's train check passes a row at
-    its limits and rejects one off them or with a kernel launched."""
+    decay the prefix, are rejected. (c)'s train check passes one sharded
+    step of deepseek-moe (fsdp, 2x2) and rejects the same step with one
+    parameter's update dropped, which its loss and gradient norm do not
+    show, and a row off any other limit or with a kernel launched."""
+    import test_torch_sharding_faults as faults
+
     from repro_torch.kernels import ops
     from repro_torch.launch import shard_check as sc
     attn = [sc.AttnCase("causal", 1, 512, 8, 32, causal=True, dtype="bfloat16", seed=1),
             sc.AttnCase("bidir", 1, 256, 4, 64, dtype="bfloat16", seed=2)]
     scan = [sc.ScanCase("rwkv6", 1, 4, 64, 16, 16, True, seed=3),
             sc.ScanCase("zamba2", 1, 4, 64, 16, 16, False, layout="zamba2", floor=True, seed=4)]
-    res = sc.run(4, sc.suite_ranks, attn, scan, (), None, True, device="cpu")[0]
+    train = [sc.TrainCase("deepseek-moe-16b", (2, 2), ("fsdp",), steps=1)]
+    res = sc.run(4, faults.faulty_suite, attn, scan, train, None, train,
+                 "layers.1.moe.w_up", device="cpu")[0]
     for case, got in zip(attn, res["ulysses"]["outputs"]):
         row = smoke.sharded_attention_row(ops, ref, sc, case, got, 4, 0.0, ops.flash_attention,
                                           device="cpu")
@@ -1145,14 +1151,14 @@ def test_sharding_phase_checks_pass_the_sharded_paths_and_reject_their_faults():
     with pytest.raises(RuntimeError, match="K3's limits"):
         smoke.sharded_scan_row(torch, sc, scan[0], res["faults"]["ladder_no_decay"]["outputs"][0],
                                4, 0.0, ops.linear_scan, device="cpu")
-    good = {"arch": "yi-9b", "world": 2, "mesh": "2x1", "opts": "zero", "backend": "gloo",
-            "loss": 3e-7, "grad_norm": 4e-6, "params": 2e-5, "worst_param": "layers.0.wq",
-            "zero_init_abs": 1e-9, "moments": 3e-6, "topk_differ": 0, "tokens": 0,
-            "steps": [{"got": {"loss": 11.1}, "want": {"lr": 3e-6}}], "host_s": {},
-            "launches": {"flash_attention": 0, "adaln_rmsnorm": 0, "ssm_scan": 0}}
-    assert smoke.sharded_train_row(good)["param_err_over_rms"] == 2e-5
-    for bad in ({"loss": 2e-5}, {"grad_norm": 2e-4}, {"params": 2e-4}, {"moments": 2e-4},
-                {"zero_init_abs": 4e-6},
+    good = res["train"][0]
+    print(smoke.sharded_train_row(good))
+    dropped = res["faults"]["dropped_update"][0]
+    assert dropped["loss"] <= smoke.SP_LOSS_TOL and dropped["grad_norm"] <= smoke.SP_GNORM_TOL
+    with pytest.raises(RuntimeError, match="off its limits"):
+        smoke.sharded_train_row(dropped)
+    for bad in ({"loss": 2e-5}, {"aux": 2e-5}, {"grad_norm": 2e-4}, {"params": 2e-4},
+                {"updates": 2e-3}, {"moments": 2e-4}, {"moments_of_max": 2e-4},
                 {"launches": dict(good["launches"], flash_attention=1)}):
         with pytest.raises(RuntimeError):
             smoke.sharded_train_row(dict(good, **bad))
