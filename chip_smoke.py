@@ -131,6 +131,21 @@ Phases:
      {json}`` row per check; the ranks' K1 and K3 launches are counted (a
      path of their own in the kernels line), and the train step must
      launch none;
+  15. (run after 14) the roofline and the dry run (``repro_torch.roofline``,
+     ``launch/dryrun``, ``launch/dryrun_pipeline``): (a) the counter's known
+     answers on this torch (a Shard(0) x Shard(1) product on a fake 16x16
+     world, its first call and its second; two collectives on a fake world
+     of 4); (b) the dry run of DRYRUN_CASES and sd3's stages on ``meta``
+     over fake 16x16 and 2x16x16 worlds, one ``[15b]`` row each (the three
+     terms on H100_SXM), failing on an error, with its host seconds; (c) one
+     yi-9b prefill group at phase 8's first shape and one sd3 DiT step at
+     512 px on the card under the counter, each equal in FLOPs, bytes and
+     kernel calls to the same step on ``meta``, its kernel calls equal to
+     the launches it made (a path of the kernels line), printed with its
+     CUDA-event time after an untimed run, its roofline bound on H100_SXM,
+     their ratio and the reckoned peak beside the allocator's. (d): every
+     bound the phases print (3, 5, 6, 8, 13) comes from
+     ``roofline.analysis`` and the kernel modules' ``cost``;
   9. run the simulated H100 cluster through ``repro_torch.launch.serve.main``
      for each pipeline on the dynamic workload over 600 s, trident and B1-B6,
      at 128 chips and at 16 (with the rate scaled to the same load per
@@ -204,10 +219,12 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-# published H100 SXM peaks (NVIDIA data sheet): the bound of each kernel
-PEAK_BF16_TENSOR = 989e12     # FLOP/s, dense
-PEAK_F32 = 67e12              # FLOP/s, outside the tensor cores
-PEAK_HBM = 3.35e12            # bytes/s
+from repro_torch.roofline import analysis as roofline  # noqa: E402
+
+# published H100 SXM peaks (NVIDIA data sheet): every bound is priced at them
+PEAK_BF16_TENSOR = roofline.PEAK_BF16_TENSOR   # FLOP/s, dense
+PEAK_F32 = roofline.PEAK_F32                   # FLOP/s, outside the tensor cores
+PEAK_HBM = roofline.PEAK_HBM                   # bytes/s
 
 # the served pipelines: phase 5 serves the first, phase 5b the others, phase
 # 5d the heavy classes of the last three
@@ -581,12 +598,8 @@ def check_flash_attention(torch, ops, ref, fa, gen, records, main, ends):
             rec["padded_key_fault_rms_rel_err"] = fault_rel
             if fault_ok:
                 raise RuntimeError(f"K1's check cannot see the padded-key fault: {rec}")
-        pairs = int(mask.sum().item()) * b * h if mask is not None else b * h * lq * lkv
-        flops = 4.0 * pairs * d
-        nbytes = 2 * (2 * b * lq * h * d + 2 * b * lkv * h * d)
-        rec["bound_ms"] = max(flops / PEAK_BF16_TENSOR, nbytes / PEAK_HBM) * 1e3
-        rec["bound_by"] = "operations" if flops / PEAK_BF16_TENSOR > nbytes / PEAK_HBM \
-            else "bytes"
+        flops, nbytes = fa.cost(q, k, v, causal=causal, window=window)
+        rec["bound_ms"], rec["bound_by"] = roofline.kernel_bound_ms(fa, (flops, nbytes))
         del o, want
         if shape in timed:
             sets = ring(make, nbytes) if rows is None else [(q, k, v)]
@@ -651,11 +664,9 @@ def check_adaln_rmsnorm(torch, ref, ar, gen, records, main, ends):
                "plan": ar.plan(b, l, d, dt)}
         if not torch.isfinite(y).all() or not ok:
             raise RuntimeError(f"adaln_rmsnorm disagrees with its plain version: {rec}")
-        es = x.element_size()
-        nbytes = 2 * b * l * d * es + 2 * b * d * es
-        ops = 6.0 * b * l * d              # square, sum, scale by r, 1 + s, multiply, add
-        rec["bound_ms"] = max(nbytes / PEAK_HBM, ops / PEAK_F32) * 1e3
-        rec["bound_by"] = "bytes" if nbytes / PEAK_HBM >= ops / PEAK_F32 else "operations"
+        cost = ar.cost(x, s, t)
+        nbytes = cost[1]
+        rec["bound_ms"], rec["bound_by"] = roofline.kernel_bound_ms(ar, cost)
         if (b, l, d) in timed and dt == torch.bfloat16:
             sets = ring(make, nbytes)
             rec["ms"] = device_ms(ar.adaln_rmsnorm, sets, 50)
@@ -995,14 +1006,6 @@ def scan_agree(got, want):
     return errs[0], errs[1], ok
 
 
-def unique_bytes(t) -> int:
-    """Bytes a tensor holds: a stride-0 (broadcast) dimension counts once."""
-    n = 1
-    for size, stride in zip(t.shape, t.stride()):
-        n *= size if stride else 1
-    return n * t.element_size()
-
-
 def check_ssm_scan(torch, ref, ss, gen, records, serving_shapes):
     """``serving_shapes``: (path, B, L, H, bonus, layout) of every call phase 8
     makes: rwkv6's (B, 40, L, 64, 64) with the bonus, every input per head;
@@ -1057,11 +1060,9 @@ def check_ssm_scan(torch, ref, ss, gen, records, serving_shapes):
             if not (torch.equal(torch.cat([first[0], rest[0]], 2), got[0])
                     and torch.equal(rest[1], got[1])):
                 raise RuntimeError(f"ssm_scan depends on where the sequence is cut: {rec}")
-        nbytes = sum(unique_bytes(t) for t in (q, k, v, decay) + got
-                     + tuple(t for t in (u, s0) if t is not None))
-        flops = 5.0 * b * h * l * dk * dv      # per (token, k, v): S update 3, read 2
-        rec["bound_ms"] = max(nbytes / PEAK_HBM, flops / PEAK_F32) * 1e3
-        rec["bound_by"] = "bytes" if nbytes / PEAK_HBM >= flops / PEAK_F32 else "operations"
+        cost = ss.cost(q, k, v, decay, bonus=u, initial_state=s0)
+        nbytes = cost[1]
+        rec["bound_ms"], rec["bound_by"] = roofline.kernel_bound_ms(ss, cost)
         if shape in timed:
             sets = ring(lambda: make()[:5], nbytes)
 
@@ -1291,53 +1292,24 @@ def check_moe_cut(torch, C, tf, moe) -> dict:
 
 
 def decode_bound_ms(model) -> float:
-    """A decode step's least time: every weight read once at PEAK_HBM, but
-    the embedding tables, of which a step gathers a row per token (every
-    expert is read: a batch of tokens routes to most of them)."""
-    gathered = {"embed", "codebook_embed"}
-    nbytes = sum(p.numel() * p.element_size() for n, p in model.named_parameters()
-                 if n not in gathered)
-    return nbytes / PEAK_HBM * 1e3
+    """A decode step's least time (``roofline.decode_bound_ms``)."""
+    return roofline.decode_bound_ms(model)
 
 
 def weights_per_token(cfg, model, skip) -> int:
-    """The weights one token meets: every parameter not named in ``skip``,
-    and of an MoE layer's routed experts only the ``experts_per_token`` it
-    takes."""
-    n = sum(p.numel() for name, p in model.named_parameters() if name not in skip)
-    moe_layers = sum(1 for _, ffn in cfg.layer_kinds() if ffn == "moe")
-    return n - (moe_layers * (cfg.num_experts - cfg.experts_per_token) * 3 * cfg.d_model
-                * (cfg.moe_d_ff or cfg.d_ff))
+    """The weights one token meets (``roofline.weights_per_token``)."""
+    return roofline.weights_per_token(cfg, model, skip)
 
 
 def attention_pairs(cfg, length: int) -> int:
-    """The query-key pairs the attention layers' masks keep over one
-    sequence of ``length`` tokens, summed over the layers."""
-    total = 0
-    for mixer, _ in cfg.layer_kinds():
-        if mixer == "attn_chunked":
-            total += sum(i % cfg.chunk_size + 1 for i in range(length))
-        elif mixer == "attn_local":
-            total += sum(min(i + 1, cfg.window_size) for i in range(length))
-        elif mixer == "attn":
-            total += length * (length + 1) // 2
-    return total
+    """The query-key pairs the masks keep (``roofline.attention_pairs``)."""
+    return roofline.attention_pairs(cfg, length)
 
 
 def prefill_bound_ms(cfg, model, length: int) -> float:
-    """A prefill group's least time (LLM_BATCH x ``length`` tokens): the
-    larger of every weight read once at PEAK_HBM and its products at
-    PEAK_BF16_TENSOR: two operations per token and weight of the layers
-    (``weights_per_token``), four per query-key pair an attention layer's
-    mask keeps and head dim, and the LM head on the last token."""
-    per_token = weights_per_token(cfg, model, {"embed", "codebook_embed", "lm_head",
-                                               "codebook_head"})
-    flops = 2.0 * LLM_BATCH * (length * per_token
-                               + cfg.d_model * cfg.vocab_size * max(1, cfg.num_codebooks))
-    flops += (4.0 * LLM_BATCH * attention_pairs(cfg, length) * cfg.num_heads
-              * cfg.resolved_head_dim)
-    nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
-    return max(flops / PEAK_BF16_TENSOR, nbytes / PEAK_HBM) * 1e3
+    """A prefill group's least time, LLM_BATCH x ``length`` tokens
+    (``roofline.prefill_bound_ms``)."""
+    return roofline.prefill_bound_ms(cfg, model, length, LLM_BATCH)
 
 
 def moe_groups(cfg, moe, lengths) -> list:
@@ -2037,45 +2009,15 @@ def check_restore(torch, saved: dict, restored: dict) -> None:
 
 
 def train_memory_gib(cfg, batch: int, seq: int) -> dict:
-    """A trainer's memory, reckoned from the shapes before the card holds
-    it: its weights (bf16, norms f32), grads of the same dtypes, f32 AdamW
-    moments, the layers' inputs that remat keeps, and the largest transient:
-    three f32 tensors of the plain attention's scores (B x H x L x L: the
-    scores, their softmax and its gradient) or of the logits (B x L x V:
-    logits, log-softmax and its gradient)."""
-    from repro_torch.models import transformer
-    model = transformer.Transformer(cfg, "meta")
-    n = sum(p.numel() for p in model.parameters())
-    w = sum(p.numel() * p.element_size() for p in model.parameters())
-    t = batch * seq
-    attn = any(m.startswith("attn") for m, _ in cfg.layer_kinds())
-    scores = batch * cfg.num_heads * seq * seq * 4 if attn and seq < cfg.attn_block_threshold else 0
-    logits = t * cfg.vocab_size * max(1, cfg.num_codebooks) * 4
-    out = {"params": n, "weights": w, "grads": w, "moments": 8 * n,
-           "remat_saved": cfg.num_layers * t * cfg.d_model * 2,
-           "transient": 3 * max(scores, logits)}
-    gib = {k: v / 2 ** 30 for k, v in out.items() if k != "params"}
-    gib["total"] = sum(gib.values())
-    return {"params": n, **gib}
+    """A trainer's memory, reckoned from the shapes
+    (``roofline.train_memory_gib``)."""
+    return roofline.train_memory_gib(cfg, batch, seq)
 
 
 def train_bound_ms(cfg, batch: int, seq: int) -> tuple:
-    """A train step's least time -> (ms, bound_by): the larger of its
-    products at PEAK_BF16_TENSOR, 6 per token and weight a token meets (the
-    LM head included, the embedding gather and an MoE layer's experts the
-    token does not take left out) plus 12 per query-key pair the mask keeps
-    and head dim in each attention layer (forward 4, backward 8), and its
-    bytes at PEAK_HBM: the weights read, the grads written and read, the
-    moments read and written and the weights written once each."""
-    from repro_torch.models import transformer
-    model = transformer.Transformer(cfg, "meta")
-    flops = (6.0 * batch * seq * weights_per_token(cfg, model, {"embed", "codebook_embed"})
-             + 12.0 * batch * attention_pairs(cfg, seq) * cfg.num_heads * cfg.resolved_head_dim)
-    n = sum(p.numel() for p in model.parameters())
-    w = sum(p.numel() * p.element_size() for p in model.parameters())
-    nbytes = 3 * w + 16 * n
-    ops_ms, bytes_ms = flops / PEAK_BF16_TENSOR * 1e3, nbytes / PEAK_HBM * 1e3
-    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes")
+    """A train step's least time -> (ms, bound_by)
+    (``roofline.train_bound_ms``)."""
+    return roofline.train_bound_ms(cfg, batch, seq)
 
 
 def train_phase(torch, C, tf, ops, moe) -> list:
@@ -2378,6 +2320,183 @@ KERNELS = (("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
             "src/repro/kernels/ssm_scan.py:80"))
 
 
+# phase 15: the dry run's combinations (arch, shape, multi-pod, --opt), its
+# host-time budget, and the counted steps' DiT resolution. long_500k is a
+# decode shape, whose recurrence is plain torch: rwkv6's prefill counts K3
+DRYRUN_CASES = (("yi-9b", "decode_32k", False, ()),
+                ("deepseek-moe-16b", "train_4k", False, ("zero",)),
+                ("rwkv6-3b", "long_500k", True, ()), ("rwkv6-3b", "prefill_32k", False, ()))
+DRYRUN_PIPELINE = "sd3"
+DRYRUN_HOST_S = 120
+COUNTED_DIT_RES = 512
+
+
+def known_answers_phase(torch) -> dict:
+    """Phase 15 (a): the counter's known answers on this torch. A (4096,
+    4096) bf16 product of Shard(0) by Shard(1) operands on a fake 16x16
+    world counts 2 * 256 * 256 * 4096 FLOPs per device on its first call and
+    on its second (DTensor's propagation on global shapes, first call only,
+    is not counted); an all-reduce of a (16, 16) f32 over 4 ranks and an
+    all-gather into (16, 16) over 2 count 2 * 3/4 * 1024 + 1/2 * 1024 =
+    2048 wire bytes."""
+    import torch.distributed as dist
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.roofline import counts
+    want = 2 * 256 * 256 * 4096
+    with counts.fake_world(256):
+        mesh = mesh_lib.build(mesh_lib.make_production_mesh(), "cpu")
+        a = torch.empty((4096, 4096), dtype=torch.bfloat16, device="meta")
+        x = DTensor.from_local(a[:256], mesh, [Shard(0), Replicate()], run_check=False,
+                               shape=a.shape, stride=a.stride())
+        w = DTensor.from_local(a[:, :256], mesh, [Replicate(), Shard(1)], run_check=False,
+                               shape=a.shape, stride=a.stride())
+        flops = [counts.count(lambda: x @ w)[1].flops for _ in range(2)]
+    with counts.fake_world(4):
+        pair = mesh_lib.build(mesh_lib.MeshShape(("data", "model"), (2, 2)), "cpu")
+        _, coll = counts.count(lambda: (
+            funcol.all_reduce(torch.empty((16, 16), device="meta"), "sum", dist.group.WORLD),
+            funcol.all_gather_tensor(torch.empty((8, 16), device="meta"), 0, (pair, 1))))
+    out = {"product_flops": flops, "want": want, "wire_bytes": coll.collective_wire_bytes,
+           "counts": coll.collective_counts}
+    print(f"[15a] known answers: {json.dumps(out)}", flush=True)
+    if flops != [want, want] or coll.collective_wire_bytes != 2048 \
+            or coll.collective_counts != {"all-reduce": 1, "all-gather": 1}:
+        raise RuntimeError(f"the counter's known answers do not hold: {out}")
+    return out
+
+
+def dry_row(rec: dict) -> str:
+    """One dry-run record as a row: the three terms, the bottleneck, the
+    useful share, the peak and the host seconds."""
+    return (f"{rec['arch']} {rec['shape']} {rec['mesh']} {','.join(rec.get('opts', []))}: "
+            f"compute {rec['t_compute_s'] * 1e3:.2f} ms, memory {rec['t_memory_s'] * 1e3:.2f} ms, "
+            f"collective {rec['t_collective_s'] * 1e3:.2f} ms -> {rec['bottleneck']}, useful "
+            f"{rec['useful_ratio']:.3f}, peak {rec['peak_mem_per_device'] / 2 ** 30:.2f} GiB, "
+            f"flops {rec['hlo_flops_per_device']:.4e}, bytes {rec['hlo_bytes_per_device']:.4e}, "
+            f"wire {rec['coll_wire_bytes_total']:.4e} {json.dumps(rec['coll_counts'])}, kernels "
+            f"{json.dumps(rec['kernel_calls'])}, replicated {json.dumps(rec['replicated_calls'])}, "
+            f"{rec['t_trace_s']} s")
+
+
+def dryrun_phase() -> list:
+    """Phase 15 (b): the dry run (``launch/dryrun``, ``launch/dryrun_pipeline``)
+    of DRYRUN_CASES and DRYRUN_PIPELINE's stages, on ``meta`` over fake
+    worlds; fails if any record is an error."""
+    from repro_torch.core.profiler import H100_SXM
+    from repro_torch.launch import dryrun, dryrun_pipeline
+    t0 = time.perf_counter()
+    print("[15b] " + dryrun.NODE_NOTE.format(hw=H100_SXM.name, n=H100_SXM.link_domain_chips,
+                                             mesh="16x16 and 2x16x16"), flush=True)
+    recs = [dryrun.run_one(a, s, multi_pod=mp, verbose=False, opts=frozenset(o))
+            for a, s, mp, o in DRYRUN_CASES]
+    recs += dryrun_pipeline.run_case(DRYRUN_PIPELINE, verbose=False)
+    seconds = time.perf_counter() - t0
+    with open(out_path("dryrun.jsonl"), "w") as f:
+        for r in recs:
+            f.write(json.dumps(r) + "\n")
+    for r in recs:
+        if r["status"] != "ok":
+            raise RuntimeError(f"dry run {r['arch']} {r['shape']} {r['mesh']}: {r['status']} "
+                               f"{r.get('error', r.get('reason'))}")
+        print(f"[15b] {dry_row(r)}", flush=True)
+    print(f"[15b] dry run took {seconds:.1f} s of host time (budget {DRYRUN_HOST_S} s)",
+          flush=True)
+    return recs
+
+
+def counted_step(torch, ops, name: str, build, device: str = "cuda") -> dict:
+    """Phase 15 (c) for one step: ``build(device)`` -> (fn, args). The step
+    runs untimed, then timed (CUDA events), then under the counter; the
+    same step built on ``meta`` must count the same FLOPs, bytes and kernel
+    calls, and the kernel calls must be ``ops.LAUNCHES``' increase. Prints
+    the time, the roofline bound on H100_SXM, the share and the reckoned
+    peak beside the allocator's."""
+    from repro_torch import device as _device
+    from repro_torch.roofline import counts
+    dev = torch.device(device)
+    fn, args = build(dev)
+    with torch.no_grad():
+        fn(*args)                                    # untimed: the shapes' first run
+        with _device.StageTimer(dev) as timer:
+            fn(*args)
+        ms = timer.ms()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        before = dict(ops.LAUNCHES)
+        _, mc = counts.count(fn, *args)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        launched = {k: ops.LAUNCHES[k] - before[k] for k in before if ops.LAUNCHES[k] != before[k]}
+        allocated = torch.cuda.max_memory_allocated() if dev.type == "cuda" else None
+    del fn, args
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    mfn, margs = build(torch.device("meta"))
+    with torch.no_grad():
+        _, meta = counts.count(mfn, *margs)
+    roof = roofline.Roofline.from_costs(name, "", "1", 1, mc, 0.0)
+    rec = {"step": name, "ms": ms, "bound_ms": roof.t_bound * 1e3, "bottleneck": roof.bottleneck,
+           "share": roof.t_bound * 1e3 / ms, "flops": mc.flops, "hbm_bytes": mc.hbm_bytes,
+           "kernel_calls": mc.kernel_calls, "launched": launched,
+           "reckoned_peak_gib": mc.peak_bytes / 2 ** 30,
+           "allocated_peak_gib": None if allocated is None else allocated / 2 ** 30,
+           "meta": {"flops": meta.flops, "hbm_bytes": meta.hbm_bytes,
+                    "kernel_calls": meta.kernel_calls}}
+    print(f"[15c] {json.dumps(rec)}", flush=True)
+    if (mc.flops, mc.hbm_bytes, mc.kernel_calls) != (meta.flops, meta.hbm_bytes,
+                                                     meta.kernel_calls):
+        raise RuntimeError(f"{name}: the card's counts differ from meta's: {rec}")
+    if dev.type == "cuda" and mc.kernel_calls != launched:
+        raise RuntimeError(f"{name}: counted kernel calls {mc.kernel_calls}, launched {launched}")
+    return rec
+
+
+def counted_steps_phase(torch, C, ops, serve_llm) -> dict:
+    """Phase 15 (c): one yi-9b prefill group at phase 8's first shape and one
+    sd3 DiT step at COUNTED_DIT_RES px, each counted on the card and on
+    ``meta``; returns the kernels' launches."""
+    from repro_torch.models import diffusion
+    from repro_torch.models import transformer as tf
+    cfg = llm_config(C, "yi-9b")
+    length = group_lengths(llm_requests(serve_llm, cfg))[0]
+
+    def yi_prefill(dev):
+        model = tf.Transformer(cfg, dev)
+        if dev.type != "meta":
+            model.init_(torch.Generator(device=dev).manual_seed(0))
+        tokens = torch.zeros((LLM_BATCH, length), dtype=torch.int64, device=dev)
+        if dev.type != "meta":
+            tokens.random_(0, cfg.vocab_size, generator=torch.Generator(device=dev).manual_seed(1))
+        return (lambda m, t: m.prefill(t, length + LLM_MAX_NEW)), (model.eval(), tokens)
+
+    pcfg = C.get("sd3")
+    lt = pcfg.latent_tokens(COUNTED_DIT_RES)
+
+    def dit_step(dev):
+        dit = diffusion.DiT(pcfg.dit, dev)
+        x = torch.zeros((1, lt, pcfg.dit.latent_dim), device=dev)
+        cond = torch.zeros((1, 77, pcfg.dit.cond_dim), device=dev)
+        if dev.type != "meta":
+            g = torch.Generator(device=dev).manual_seed(2)
+            dit.init_(g)
+            x.normal_(generator=g)
+            cond.normal_(generator=g)
+        t = torch.full((1,), 500.0, device=dev)
+        return (lambda m, xx, tt, cc: m(xx, tt, cc)), (dit.eval(), x, t, cond)
+
+    launches = {k: 0 for k in ops.LAUNCHES}
+    for name, build in ((f"yi-9b prefill {LLM_BATCH} x {length}", yi_prefill),
+                        (f"sd3 DiT step {COUNTED_DIT_RES} px (L = {lt} + 77)", dit_step)):
+        rec = counted_step(torch, ops, name, build)
+        for k, n in rec["launched"].items():
+            launches[k] += n
+    return launches
+
+
 def kernel_records(records: dict, by_path: dict) -> list:
     """The kernels line: per kernel, its launches on the main path (by path),
     its largest error, and its ms, plain ms, bound ms and library ms summed
@@ -2530,6 +2649,11 @@ def main() -> int:
     lap("13")
     by_path["14 sharding"] = sharding_phase(torch, C, ops, ref, fa, ss)
     lap("14")
+    known_answers_phase(torch)
+    dryrun_phase()
+    ops.reset_launches()
+    by_path["15 counted"] = counted_steps_phase(torch, C, ops, serve_llm)
+    lap("15")
 
     cluster_phase()
     lap("9")

@@ -5,9 +5,10 @@ traces, fewer combos); ``--full`` runs the paper-scale sweeps; ``--only
 <name>`` runs a single module.  ``--hw`` names the profiler's constant set:
 ``h100`` (``H100_SXM``, the default: simulated numbers for the paper's
 figures on the card) or ``reference`` (the JAX reference's constants, under
-which every row is the reference script's).  Counterpart of
-``benchmarks/run.py``; the kernel microbenchmarks and the roofline table
-(``kernels_bench``, ``roofline``) wait for the port of the dry-run.
+which every row of ``MODULES`` is the reference script's).  Counterpart of
+``benchmarks/run.py``. ``ROOFLINE_MODULES`` are the kernel
+microbenchmarks (the plain versions' CPU time) and the roofline table of
+the dry-run records (``launch/dryrun.py``), priced on ``--hw``.
 
 ``--smoke`` is the CI-style pass: the event-vs-tick smoke set and the
 shared-cluster, predictive, cross-batch, scale and elastic smokes, each
@@ -43,6 +44,10 @@ MODULES = [
     "slo_sensitivity",         # Fig. 15
     "dispatcher_scalability",  # Table 4, on launch/dispatcher_scalability.py
     "batch_effects",           # Fig. 17 / Appendix E.1
+]
+ROOFLINE_MODULES = [
+    "kernels_bench",           # kernel microbenchmarks (the plain versions, CPU)
+    "roofline",                # §Roofline table from the dry-run records
 ]
 
 # the checkout's root, which holds the committed BENCH_*.json baselines
@@ -118,7 +123,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("--hw", choices=sorted(HARDWARE), default="h100",
                     help="the profiler's constant set: H100_SXM or the JAX reference's")
     ap.add_argument("--full", action="store_true")
-    ap.add_argument("--only", default=None, choices=MODULES)
+    ap.add_argument("--only", default=None, choices=MODULES + ROOFLINE_MODULES)
     ap.add_argument("--smoke", action="store_true",
                     help="CI-style fast pass: the e2e smoke set with the event-vs-tick "
                          "check and the fleet and scale smokes; under --hw reference, "
@@ -135,7 +140,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         return 0 if parity_ok and not problems else 1
     ok = True
     print(f"# simulated: the profiler's {hw.name} constants, not measured", flush=True)
-    for name in [args.only] if args.only else MODULES:
+    for name in [args.only] if args.only else MODULES + ROOFLINE_MODULES:
         t0 = time.perf_counter()
         print(f"# --- {name} ---", flush=True)
         try:

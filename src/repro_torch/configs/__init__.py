@@ -4,11 +4,14 @@
 same-family variant that runs on a CPU in seconds. Counterpart of
 ``repro/configs/__init__.py``, with the same ids: the four diffusion
 pipelines (``sd3``, ``flux``, ``cogvideox``, ``hunyuanvideo``) and the ten
-LLMs of the zoo.
+LLMs of the zoo. ``INPUT_SHAPES`` are the dry-run's four input shapes, with
+the reference's lengths, batches and kinds.
 """
 from __future__ import annotations
 
+import dataclasses
 import importlib
+from typing import Dict
 
 ARCH_IDS = ("zamba2-1.2b", "rwkv6-3b", "yi-9b", "yi-34b", "starcoder2-15b", "gemma2-9b",
             "deepseek-moe-16b", "llama4-maverick-400b-a17b", "internvl2-2b", "musicgen-medium")
@@ -45,3 +48,19 @@ def get(config_id: str):
 
 def get_smoke(config_id: str):
     return _module(config_id).SMOKE
+
+
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+INPUT_SHAPES: Dict[str, InputShape] = {
+    "train_4k": InputShape("train_4k", 4096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524288, 1, "decode"),
+}

@@ -9,7 +9,9 @@ The launch path is cut to what a call needs: shapes, strides, dtypes and
 devices are checked once per signature and remembered with the launch record
 the C entry point takes; each call checks only its pointers' alignment, takes
 the raw stream handle, and enters a device guard only when the tensors are
-not on the current device.
+not on the current device. ``cost`` gives the operations and bytes of a
+call, which its bound is priced at (``PEAK``: f32 outside the tensor
+cores) and which ``roofline/counts.py`` counts.
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ VECTORS = (1, 2, 4, 6, 8, 12, 16, 24)
 BLOCK_WARPS = 4                 # warps per block, halved for short calls
 SMS = 132                       # an H100 SXM's SMs
 MAX_B = 65535                   # the grid's second dimension
+PEAK = "f32"                    # the peak the bound prices the operations at
 _VP = ctypes.c_void_p
 
 
@@ -131,3 +134,12 @@ def adaln_rmsnorm(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor, *,
     if err:
         _build.check(err, "adaln_rmsnorm")
     return out
+
+
+def cost(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor) -> tuple:
+    """(operations, bytes) of one call: 6 a element of x (square, sum, scale
+    by the reciprocal rms, 1 + scale, multiply, add), and x read, y written
+    and the (B, D) scale and shift read once."""
+    b, l, d = x.shape
+    es = x.element_size()
+    return 6.0 * b * l * d, 2 * b * l * d * es + 2 * b * d * es

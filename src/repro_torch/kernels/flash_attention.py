@@ -5,6 +5,9 @@ kernel reads q/k/v in their ``(B, L, H, D)`` layout through strides, masks the
 ragged edge itself (any ``L`` works), and takes bf16 with D in {64, 128, 256}
 (256: gemma2's heads, on a ring of 64-key tiles).
 This wrapper checks what it is given and launches; it never falls back.
+``cost`` gives the operations and bytes of a call, which its bound is
+priced at (``PEAK``: the bf16 tensor cores) and which ``roofline/counts.py``
+counts.
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ import torch
 from repro_torch.kernels import _build
 
 HEAD_DIMS = (64, 128, 256)
+PEAK = "bf16_tensor"             # the peak the bound prices the operations at
 _VP = ctypes.c_void_p
 _ARGTYPES = [_VP, _VP, _VP, _VP, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
              ctypes.c_int, _VP, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float, _VP]
@@ -58,3 +62,30 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
                  1.0 / math.sqrt(d), stream)
     _build.check(err, "flash_attention")
     return o
+
+
+def kept_pairs(lq: int, lkv: int, causal: bool = True, window: int = 0) -> int:
+    """The query-key pairs one (batch, head) keeps: every pair without a
+    mask, else those of ``ops.attention_mask`` (queries at the end of the
+    keys, each seeing itself and the ``window - 1`` keys before it)."""
+    if not (causal or window):
+        return lq * lkv
+    # query i sees n = i + lkv - lq + 1 keys (none when n <= 0), at most window
+    lo = max(lkv - lq + 1, 1)
+    if lo > lkv:
+        return 0
+    cap = window if window else lkv
+    mid = min(lkv, cap)
+    total = (lo + mid) * (mid - lo + 1) // 2 if lo <= mid else 0
+    return total + cap * (lkv - max(lo, cap + 1) + 1) if lkv > cap else total
+
+
+def cost(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
+         window: int = 0) -> tuple:
+    """(operations, bytes) of one call: 4 per kept query-key pair and head
+    dim (the two products), and q, k, v and o each read or written once."""
+    b, lq, h, d = q.shape
+    lkv = k.shape[1]
+    flops = 4.0 * kept_pairs(lq, lkv, causal, window) * b * h * d
+    nbytes = q.element_size() * (2 * b * lq * h * d + 2 * b * lkv * h * d)
+    return flops, nbytes

@@ -9,10 +9,14 @@ shared-memory stages by TMA, and reads q/k/v/decay through their strides,
 so Mamba2's head-shared B/C and per-head decay stay stride-0 views (a decay
 whose last stride is 0 takes the kernel's scalar-decay path). This
 wrapper checks what it is given and launches; it never falls back.
+``cost`` gives the operations and bytes of a call, which its bound is
+priced at (``PEAK``: f32 outside the tensor cores) and which
+``roofline/counts.py`` counts.
 """
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -27,6 +31,7 @@ STAGES = 3
 # kept by the kernel and by its plain version alike
 MAX_NEG_LOGW = 5.4
 MAX_DIM = 64                     # largest K and V the kernel takes
+PEAK = "f32"                     # the peak the bound prices the operations at
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _VP = ctypes.c_void_p
 _ARGTYPES = [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -131,3 +136,34 @@ def plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, decay: torch.Tensor,
             "staging": "element-wise " + ",".join(staging) if staging else "tma",
             "decay": "per-token" if scalar else "per-channel", "smem_bytes": smem,
             "blocks_per_sm": per_sm}
+
+
+def unique_bytes(t: torch.Tensor) -> int:
+    """Bytes a tensor holds: a stride-0 (broadcast) dimension counts once."""
+    n = 1
+    for size, stride in zip(t.shape, t.stride()):
+        n *= size if stride else 1
+    return n * t.element_size()
+
+
+def out_shapes(q: torch.Tensor, v: torch.Tensor) -> tuple:
+    """The (shape, dtype) of the call's two outputs: out (B, H, L, V) in v's
+    dtype and the final state (B, H, K, V) in float32."""
+    b, h, l, dk = q.shape
+    dv = v.shape[3]
+    return ((b, h, l, dv), v.dtype), ((b, h, dk, dv), torch.float32)
+
+
+def cost(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, decay: torch.Tensor, *,
+         bonus: Optional[torch.Tensor] = None,
+         initial_state: Optional[torch.Tensor] = None) -> tuple:
+    """(operations, bytes) of one call: 5 per token, K and V element (the
+    state's update 3, the read 2), and the unique bytes of the inputs (a
+    head-shared view once), both outputs, the bonus and the initial state."""
+    b, h, l, dk = q.shape
+    dv = v.shape[3]
+    nbytes = sum(unique_bytes(t) for t in (q, k, v, decay))
+    nbytes += sum(math.prod(shape) * torch.empty((), dtype=dt).element_size()
+                  for shape, dt in out_shapes(q, v))
+    nbytes += sum(unique_bytes(t) for t in (bonus, initial_state) if t is not None)
+    return 5.0 * b * h * l * dk * dv, nbytes

@@ -134,6 +134,22 @@ class ModelConfig:
         return tuple(kind for cycle, repeat in self.scan_plan()
                      for _ in range(repeat) for kind in cycle)
 
+    def is_subquadratic(self) -> bool:
+        """True when no layer needs an unbounded full-attention KV cache."""
+        return all(m not in (ATTN, ATTN_BIDIR) for m, _ in self.layer_kinds())
+
+    def supports_long_context(self) -> bool:
+        """long_500k eligibility: every layer either SSM or windowed/chunked,
+        or the architecture natively mixes bounded-local with (rare) global
+        layers (gemma2, llama4). Pure full-attention stacks return False."""
+        kinds = [m for m, _ in self.layer_kinds()]
+        n_full = sum(1 for m in kinds if m == ATTN)
+        n_bounded = sum(1 for m in kinds if m in (ATTN_LOCAL, ATTN_CHUNKED) or m in SSM_KINDS)
+        if n_full == 0:
+            return True
+        # native local/global alternation: at most half the layers global
+        return n_bounded > 0 and n_full <= len(kinds) // 2
+
 
 # ---------------------------------------------------------------------------
 # Parameters and their seeded init

@@ -21,6 +21,7 @@ from torch import nn
 from repro_torch.kernels import ops as kops
 from repro_torch.models import common
 from repro_torch.models.common import param
+from repro_torch.sharding import spmd
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,18 +67,25 @@ class DiTLayer(nn.Module):
         b, l, d = x.shape
         h = cfg.num_heads
         dh = d // h
-        mod = (tc @ self.mod).reshape(b, 6, d)
+        mod = spmd.reshape(tc @ self.mod, b, 6, d)
         s1, sh1, g1, s2, sh2, g2 = (mod[:, i] for i in range(6))
-        hn = kops.adaln_rmsnorm(x, s1, sh1, eps=cfg.norm_eps)
-        q = (hn @ self.wq).reshape(b, l, h, dh)
-        k = (hn @ self.wk).reshape(b, l, h, dh)
-        v = (hn @ self.wv).reshape(b, l, h, dh)
-        a = kops.flash_attention(q, k, v, causal=False)
-        a = a.reshape(b, l, d) @ self.wo
+        hn = _adaln(x, s1, sh1, cfg.norm_eps)
+        q = spmd.reshape(hn @ self.wq, b, l, h, dh)
+        k = spmd.reshape(hn @ self.wk, b, l, h, dh)
+        v = spmd.reshape(hn @ self.wv, b, l, h, dh)
+        # on a mesh the kernel runs on each rank's batch rows and heads
+        a = spmd.local(lambda q_, k_, v_: kops.flash_attention(q_, k_, v_, causal=False).flatten(2),
+                       q, k, v, keep=(0, 2))
+        a = a @ self.wo
         x = x + g1[:, None, :] * a
-        hn = kops.adaln_rmsnorm(x, s2, sh2, eps=cfg.norm_eps)
+        hn = _adaln(x, s2, sh2, cfg.norm_eps)
         f = common.gelu_mlp(hn, self.w_up, self.w_down)
         return x + g2[:, None, :] * f
+
+
+def _adaln(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor, eps: float) -> torch.Tensor:
+    """K2; on a mesh on each rank's batch rows, the sequence whole."""
+    return spmd.local(lambda x_, s_, t_: kops.adaln_rmsnorm(x_, s_, t_, eps=eps), x, scale, shift)
 
 
 def timestep_embedding(t: torch.Tensor, dim: int) -> torch.Tensor:
@@ -144,7 +152,7 @@ class DiT(nn.Module):
         for layer in self.layers:
             x = layer(x, tc)
         fmod = (tc @ self.final_mod).reshape(x.shape[0], 2, cfg.d_model)
-        x = kops.adaln_rmsnorm(x, fmod[:, 0], fmod[:, 1], eps=cfg.norm_eps)
+        x = _adaln(x, fmod[:, 0], fmod[:, 1], cfg.norm_eps)
         return (x[:, lc:, :] @ self.x_out).float()
 
 

@@ -66,6 +66,13 @@ class MoE(nn.Module):
                 common.dense_init_(w, gen)
 
 
+def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """``F.one_hot(idx, n)`` by a comparison: the same int64 values, with no
+    check of the indices' range (which reads them back on the CPU and has
+    no ``meta`` counterpart), so every device runs the same ops."""
+    return (idx[..., None] == torch.arange(n, device=idx.device)).long()
+
+
 def route(cfg: ModelConfig, router: torch.Tensor, xg: torch.Tensor):
     """Routing of the groups xg (G, S, D): (probs (G, S, E) f32, expert index
     (G, S, k), gates (G, S, k) f32, zero where dropped, slot in the expert's
@@ -77,7 +84,7 @@ def route(cfg: ModelConfig, router: torch.Tensor, xg: torch.Tensor):
     gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
     # a token's slot in its expert's buffer: tokens in order, the k choices of
     # each in slot order (the reference's cumsum over the flattened (S, k))
-    onehot = F.one_hot(idx, e)                                   # (G, S, k, E)
+    onehot = _one_hot(idx, e)                                    # (G, S, k, E)
     flat = onehot.reshape(g_n, s * k, e)
     pos = ((torch.cumsum(flat, 1) - flat).reshape(g_n, s, k, e) * onehot).sum(-1)
     keep = pos < capacity(cfg, s)
@@ -94,14 +101,19 @@ def _dispatch(cfg: ModelConfig, xg: torch.Tensor, router: torch.Tensor):
     cap = capacity(cfg, s)
     probs, idx, gates, pos, keep = route(cfg, router, xg)
 
-    # each (group, expert, slot) names its token; empty slots name a zero row
+    # each (group, expert, slot) names its token; empty slots name a zero row.
+    # Dropped choices write to one spare slot past the end, so the write's
+    # shape does not depend on the data (it runs on ``meta``)
     gi = torch.arange(g_n, device=xg.device)[:, None, None].expand_as(idx)
     si = torch.arange(s, device=xg.device)[None, :, None].expand_as(idx)
-    slot_token = torch.full((g_n * e * cap,), s, dtype=torch.long, device=xg.device)
-    slot_token[((gi * e + idx) * cap + pos)[keep]] = si[keep]
+    n_slots = g_n * e * cap
+    slot_token = torch.full((n_slots + 1,), s, dtype=torch.long, device=xg.device)
+    target = torch.where(keep, (gi * e + idx) * cap + pos, n_slots)
+    slot_token.index_put_((target.reshape(-1),), si.reshape(-1))
+    slot_token = slot_token[:n_slots]
     rows = torch.cat([xg, xg.new_zeros((g_n, 1, d))], 1)          # (G, S + 1, D)
     xe = torch.gather(rows, 1, slot_token.view(g_n, e * cap, 1).expand(-1, -1, d))
-    density = F.one_hot(idx[..., 0], e).float().mean(dim=(0, 1))[None]
+    density = _one_hot(idx[..., 0], e).float().mean(dim=(0, 1))[None]
     return xe, idx, gates, pos, density, probs.mean(dim=(0, 1))[None]
 
 

@@ -111,7 +111,7 @@ class Mamba2(nn.Module):
         dt = F.softplus(dt.float() + self.dt_bias)                        # (B, L, H)
         # clamp per-step log-decay to the scan kernel's numeric contract
         decay_h = torch.exp(-torch.clamp(dt * torch.exp(self.A_log), 0.0, MAX_NEG_LOGW))
-        xh = xs.reshape(b, l, h, d["head_dim"])
+        xh = spmd.reshape(xs, b, l, h, d["head_dim"])
         q = cs[:, None].expand(b, h, l, n)
         k = bs[:, None].expand(b, h, l, n)
         v = (xh * dt[..., None].to(xh.dtype)).transpose(1, 2)             # dt folds into v
@@ -122,7 +122,7 @@ class Mamba2(nn.Module):
         """y: (B, L, H, P) scan output -> (B, L, D)."""
         b, l = y.shape[:2]
         y = y + self.D.to(y.dtype)[None, None, :, None] * xh
-        y = y.reshape(b, l, self.dims["d_inner"])
+        y = spmd.reshape(y, b, l, self.dims["d_inner"])
         y = common.rms_norm(y * _silu(z), self.norm_w, self.cfg.norm_eps)
         return y @ self.out_proj
 
@@ -252,12 +252,12 @@ class RWKV6(nn.Module):
         decay = torch.exp(-torch.clamp(torch.exp(w_log), 0.0, MAX_NEG_LOGW))   # (B, L, D)
 
         def hsplit(t):
-            return t.reshape(b, l, dd["heads"], dd["head_dim"]).transpose(1, 2)
+            return spmd.reshape(t, b, l, dd["heads"], dd["head_dim"]).transpose(1, 2)
         return hsplit(r), hsplit(k), hsplit(v), hsplit(decay), g
 
     def _out(self, out_bhlv: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
         b, _, l, _ = out_bhlv.shape
-        y = out_bhlv.transpose(1, 2).reshape(b, l, self.cfg.d_model)
+        y = spmd.reshape(out_bhlv.transpose(1, 2), b, l, self.cfg.d_model)
         # per-head groupnorm approximated, as in the reference, by LN over all of D
         y = common.layer_norm(y, self.ln_w, self.ln_b, self.cfg.norm_eps)
         y = y * _silu(g).to(y.dtype)

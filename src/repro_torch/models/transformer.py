@@ -166,9 +166,9 @@ class AttentionLayer(nn.Module):
         cfg = self.cfg
         b, l, _ = x.shape
         dh = cfg.resolved_head_dim
-        q = (x @ self.wq).reshape(b, l, cfg.num_heads, dh)
-        k = (x @ self.wk).reshape(b, l, cfg.num_kv_heads, dh)
-        v = (x @ self.wv).reshape(b, l, cfg.num_kv_heads, dh)
+        q = spmd.reshape(x @ self.wq, b, l, cfg.num_heads, dh)
+        k = spmd.reshape(x @ self.wk, b, l, cfg.num_kv_heads, dh)
+        v = spmd.reshape(x @ self.wv, b, l, cfg.num_kv_heads, dh)
         if cfg.qk_norm:
             q = common.rms_norm(q, self.q_norm, cfg.norm_eps)
             k = common.rms_norm(k, self.k_norm, cfg.norm_eps)
@@ -220,10 +220,11 @@ class AttentionLayer(nn.Module):
         pos = positions[0]
         # on a mesh the core runs on each rank's shard of the batch and the
         # heads (it treats each on its own): DTensor's strategy search for
-        # the f32 scores' products and masked softmax costs seconds a shape
-        out = spmd.local(lambda q_, k_, v_: self._attention(q_, k_, v_, pos, train), q, kr, vr,
-                         keep=(0, 2))
-        out = out.reshape(b, l, cfg.num_heads * cfg.resolved_head_dim)
+        # the f32 scores' products and masked softmax costs seconds a shape.
+        # The heads merge inside, so no DTensor view splits them again in
+        # the backward
+        out = spmd.local(lambda q_, k_, v_: self._attention(q_, k_, v_, pos, train).flatten(2),
+                         q, kr, vr, keep=(0, 2))
         return x + out @ self.wo, (k, v)
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor, train: bool = False):
@@ -247,7 +248,7 @@ class AttentionLayer(nn.Module):
         slot = offset % k.shape[1]
         k[:, slot] = k_new[:, 0].to(k.dtype)
         v[:, slot] = v_new[:, 0].to(v.dtype)
-        pos[:, slot] = offset
+        pos[:, slot].fill_(offset)
         valid = (pos >= 0) & (pos <= offset)
         if self.mixer == ATTN_LOCAL:
             valid &= pos > offset - cfg.window_size

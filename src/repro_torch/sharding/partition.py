@@ -328,20 +328,27 @@ def distribute(t: torch.Tensor, spec: P, mesh, what: str = "tensor"):
                               stride=t.stride())
 
 
+def distribute_model(model, specs: Mapping[str, P], mesh):
+    """``model`` on ``mesh``, in place: each parameter becomes a DTensor
+    parameter placed by ``specs`` (name -> P), keeping ``requires_grad``.
+    Every rank must hold the same full model (the same seed)."""
+    from torch import nn
+
+    for name, p in list(model.named_parameters()):
+        mod_name, _, leaf = name.rpartition(".")
+        mod = model.get_submodule(mod_name) if mod_name else model
+        setattr(mod, leaf, nn.Parameter(distribute(p.data, specs[name], mesh, name),
+                                        requires_grad=p.requires_grad))
+    return model
+
+
 def distribute_state(state, sspec: StateTree, mesh):
     """The train state on ``mesh``, in place: each parameter of the model
     becomes a DTensor parameter placed by ``sspec.params``, and each moment
     a DTensor placed by ``sspec.opt``. The step, a replicated scalar
     (``P()``), stays a plain tensor: every rank holds the same one. Every
     rank must hold the same full state (the same seed)."""
-    from torch import nn
-
-    model = state.model
-    for name, p in list(model.named_parameters()):
-        mod_name, _, leaf = name.rpartition(".")
-        mod = model.get_submodule(mod_name) if mod_name else model
-        setattr(mod, leaf, nn.Parameter(distribute(p.data, sspec.params[name], mesh, name),
-                                        requires_grad=p.requires_grad))
+    distribute_model(state.model, sspec.params, mesh)
     opt = state.opt
     mu = {n: distribute(t, sspec.opt.mu[n], mesh, f"mu.{n}") for n, t in opt.mu.items()}
     nu = {n: distribute(t, sspec.opt.nu[n], mesh, f"nu.{n}") for n, t in opt.nu.items()}
