@@ -2,9 +2,11 @@
 from __future__ import annotations
 
 import time
-from typing import Union
+from typing import Optional, Union
 
 import torch
+
+from repro_torch import trace
 
 DeviceLike = Union[str, torch.device, None]
 
@@ -28,15 +30,22 @@ def generator(device: torch.device, seed: int) -> torch.Generator:
 
 class StageTimer:
     """Times the work enqueued inside a ``with`` block: with CUDA events on
-    the card, the host clock elsewhere. ``ms()`` waits for the end event."""
+    the card, the host clock elsewhere. ``ms()`` waits for the end event.
+    Given a ``span`` name, a traced run records the block as that span,
+    whose device interval is the timer's own two events."""
 
-    def __init__(self, dev: torch.device):
+    def __init__(self, dev: torch.device, span: Optional[str] = None):
         self.cuda = dev.type == "cuda"
+        self.span = span
 
     def __enter__(self):
         if self.cuda:
             self.start = torch.cuda.Event(enable_timing=True)
             self.end = torch.cuda.Event(enable_timing=True)
+        self._span = (trace.span(self.span, events=(self.start, self.end) if self.cuda else None)
+                      if self.span else trace.OFF)
+        self._span.__enter__()
+        if self.cuda:
             self.start.record()
         else:
             self.t0 = time.perf_counter()
@@ -47,6 +56,7 @@ class StageTimer:
             self.end.record()
         else:
             self.host_ms = (time.perf_counter() - self.t0) * 1e3
+        self._span.__exit__(*exc)
         return False
 
     def ms(self) -> float:

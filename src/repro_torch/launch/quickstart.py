@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from repro_torch import device as _device
+from repro_torch import trace
 from repro_torch.core.dispatcher import Dispatcher
 from repro_torch.core.orchestrator import Orchestrator
 from repro_torch.core.profiler import H100_SXM, Profiler
@@ -50,6 +51,7 @@ HEAVY = {
     "hunyuanvideo": ((540, 2.0), (540, 4.0), (540, 8.0), (720, 1.0), (720, 2.0), (720, 4.0),
                      (720, 8.0)),
 }
+STAGE_SPANS = {"E": "encode", "D": "diffuse", "C": "decode"}   # each stage's span when traced
 
 
 def smoke_requests(pipeline: str, table: Optional[Dict] = None) -> tuple:
@@ -104,18 +106,31 @@ def serve(cfg: pl.PipelineConfig, requests: Sequence[Request], device=None, seed
     its Diffuse ran (``num_steps``: the config's, or the ``num_steps`` given
     to cut the loop) and the dispatch decision. ``pipe`` may carry an
     already built pipeline; otherwise one is built from ``seed``.
+
+    While a profiler session is active the call records its spans
+    (``repro_torch.trace``): ``serve``, ``plan``, each ``dispatch`` round,
+    each ``launch`` with its stages (``STAGE_SPANS``), their DDIM ``step``
+    spans and the ``sync`` on the stage timers.
     """
     dev = _device.resolve(device)
+    with trace.span("serve", anchor=dev, requests=len(requests), seed=seed):
+        return _serve(cfg, requests, dev, seed, pipe, num_steps)
+
+
+def _serve(cfg: pl.PipelineConfig, requests: Sequence[Request], dev: torch.device, seed: int,
+           pipe: Optional[pl.Pipeline], num_steps: Optional[int]) -> List[Dict]:
     if pipe is None:
         pipe = pl.build(cfg, dev, seed)
-    prof = Profiler(cfg, hw=H100_SXM)
-    for r in requests:
-        if not r.deadline:
-            r.deadline = r.arrival + 2.5 * prof.pipeline_time(r)
-    plan = Orchestrator(prof, num_chips=1).generate(requests)
-    if plan is None:
-        raise RuntimeError(f"no feasible placement of {cfg.name} on one chip")
-    disp = Dispatcher(prof)
+    with trace.span("plan") as sp:
+        prof = Profiler(cfg, hw=H100_SXM)
+        for r in requests:
+            if not r.deadline:
+                r.deadline = r.arrival + 2.5 * prof.pipeline_time(r)
+        plan = Orchestrator(prof, num_chips=1).generate(requests)
+        if plan is None:
+            raise RuntimeError(f"no feasible placement of {cfg.name} on one chip")
+        disp = Dispatcher(prof)
+        sp.set(units=plan.num_units)
 
     rng = np.random.default_rng(seed)
     index = {r.rid: i for i, r in enumerate(requests)}
@@ -125,49 +140,56 @@ def serve(cfg: pl.PipelineConfig, requests: Sequence[Request], device=None, seed
     pending = list(requests)
     idle = set(range(plan.num_units))
     free_at = {g: 0.0 for g in idle}
+    steps = num_steps or cfg.num_steps
     t_start = time.perf_counter()
     while pending:
         tau = time.perf_counter() - t_start
-        decisions = disp.dispatch(pending, plan, idle, free_at, tau)
+        with trace.span("dispatch", pending=len(pending)) as sp:
+            decisions = disp.dispatch(pending, plan, idle, free_at, tau)
+            sp.set(decisions=len(decisions),
+                   corequests=sum(len(d.corequests) for d in decisions))
         if not decisions:
             raise RuntimeError(f"the dispatcher placed none of {len(pending)} pending requests")
         for d in decisions:
             batch = [d.request, *d.corequests]
             req = d.request
-            toks = torch.stack([tokens[r.rid] for r in batch]).to(dev)
-            grid = cfg.latent_grid(req.resolution, req.seconds)
-            shape = (len(batch), cfg.latent_tokens(req.resolution, req.seconds),
-                     cfg.dit.latent_dim)
-            noise = torch.randn(shape, dtype=torch.float32, device=dev,
-                                generator=_device.generator(dev, seed + 1 + index[req.rid]))
-            timers = {s: _device.StageTimer(dev) for s in STAGES}
-            with timers["E"]:
-                cond = pl.encode(pipe, toks)
-            with timers["D"]:
-                lat = pl.diffuse(pipe, cond, shape, num_steps=num_steps, noise=noise)
-            with timers["C"]:
-                out = pl.decode(pipe, lat, grid)
-            stage_ms = {s: timers[s].ms() for s in STAGES}
-            k = prof.k_min
-            chips = {"E": max(1, len(d.e_units)) * k, "D": d.degree * k,
-                     "C": max(1, len(d.c_units)) * k}
-            frames = out.shape[0] // len(batch)
-            for j, r in enumerate(batch):
-                done = time.perf_counter() - t_start
-                for s in STAGES:
-                    r.stage_done[s] = done
-                records[index[r.rid]] = {
-                    "rid": r.rid, "resolution": r.resolution, "seconds": r.seconds,
-                    "batch": len(batch), "num_steps": num_steps or cfg.num_steps,
-                    "output": out[j * frames:(j + 1) * frames],
-                    "stage_ms": stage_ms,
-                    "predicted_ms": {s: predicted_ms(prof, r, s, chips[s], num_steps)
-                                     for s in STAGES},
-                    "decision": {"vr_type": d.vr_type, "degree": d.degree,
-                                 "d_units": d.d_units, "e_units": d.e_units,
-                                 "c_units": d.c_units},
-                }
-                pending.remove(r)
+            with trace.span("launch", rids=[r.rid for r in batch], batch=len(batch),
+                            resolution=req.resolution, seconds=req.seconds, steps=steps):
+                toks = torch.stack([tokens[r.rid] for r in batch]).to(dev)
+                grid = cfg.latent_grid(req.resolution, req.seconds)
+                shape = (len(batch), cfg.latent_tokens(req.resolution, req.seconds),
+                         cfg.dit.latent_dim)
+                noise = torch.randn(shape, dtype=torch.float32, device=dev,
+                                    generator=_device.generator(dev, seed + 1 + index[req.rid]))
+                timers = {s: _device.StageTimer(dev, span=STAGE_SPANS[s]) for s in STAGES}
+                with timers["E"]:
+                    cond = pl.encode(pipe, toks)
+                with timers["D"]:
+                    lat = pl.diffuse(pipe, cond, shape, num_steps=num_steps, noise=noise)
+                with timers["C"]:
+                    out = pl.decode(pipe, lat, grid)
+                with trace.span("sync"):
+                    stage_ms = {s: timers[s].ms() for s in STAGES}
+                k = prof.k_min
+                chips = {"E": max(1, len(d.e_units)) * k, "D": d.degree * k,
+                         "C": max(1, len(d.c_units)) * k}
+                frames = out.shape[0] // len(batch)
+                for j, r in enumerate(batch):
+                    done = time.perf_counter() - t_start
+                    for s in STAGES:
+                        r.stage_done[s] = done
+                    records[index[r.rid]] = {
+                        "rid": r.rid, "resolution": r.resolution, "seconds": r.seconds,
+                        "batch": len(batch), "num_steps": steps,
+                        "output": out[j * frames:(j + 1) * frames],
+                        "stage_ms": stage_ms,
+                        "predicted_ms": {s: predicted_ms(prof, r, s, chips[s], num_steps)
+                                         for s in STAGES},
+                        "decision": {"vr_type": d.vr_type, "degree": d.degree,
+                                     "d_units": d.d_units, "e_units": d.e_units,
+                                     "c_units": d.c_units},
+                    }
+                    pending.remove(r)
     return records
 
 

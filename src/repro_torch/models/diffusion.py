@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch import trace
 from repro_torch.kernels import ops as kops
 from repro_torch.models import common
 from repro_torch.models.common import param
@@ -184,7 +185,8 @@ def ddim_denoise(dit: DiT, noise: torch.Tensor, cond: torch.Tensor,
                  num_steps: int) -> torch.Tensor:
     """Multi-step denoising loop (the Diffuse stage's runtime body).
 
-    DDIM with a linear alpha-bar schedule; deterministic (eta=0).
+    DDIM with a linear alpha-bar schedule; deterministic (eta=0). A traced
+    run records each step as a ``step`` span with its index and timestep.
     """
     betas = jax_linspace(1e-4, 0.02, 1000)
     alpha_bar = torch.cumprod(1.0 - betas, dim=0).to(noise.device)
@@ -195,10 +197,11 @@ def ddim_denoise(dit: DiT, noise: torch.Tensor, cond: torch.Tensor,
         t_next = ts[i + 1] if i + 1 < num_steps else -1
         ab_t = alpha_bar[t]
         ab_n = alpha_bar[t_next] if t_next >= 0 else one
-        tb = torch.full((x.shape[0],), float(t), dtype=torch.float32, device=x.device)
-        eps = dit(x, tb, cond)
-        x0 = (x - torch.sqrt(1 - ab_t) * eps) / torch.sqrt(ab_t)
-        x = torch.sqrt(ab_n) * x0 + torch.sqrt(1 - ab_n) * eps
+        with trace.span("step", device=x.device, step=i, t=t):
+            tb = torch.full((x.shape[0],), float(t), dtype=torch.float32, device=x.device)
+            eps = dit(x, tb, cond)
+            x0 = (x - torch.sqrt(1 - ab_t) * eps) / torch.sqrt(ab_t)
+            x = torch.sqrt(ab_n) * x0 + torch.sqrt(1 - ab_n) * eps
     return x
 
 
