@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Optional
+from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -111,6 +111,7 @@ class DiT(nn.Module):
         self.final_mod = param((d, 2 * d), dt, device)
         self.x_out = param((d, cfg.latent_dim), dt, device)
         self.pos_freq = param((2, d // 2), torch.float32, device)
+        self.step_graphs: Optional[StepGraphs] = None    # made by ``step_graphs`` on a card
 
     @torch.no_grad()
     def init_(self, gen: torch.Generator) -> None:
@@ -180,28 +181,133 @@ def ddim_timesteps(num_steps: int) -> list:
     return jax_linspace(999, 0, num_steps).to(torch.int32).tolist()
 
 
+def ddim_step(dit: DiT, x: torch.Tensor, tb: torch.Tensor, cond: torch.Tensor,
+              ab_t: torch.Tensor, ab_n: torch.Tensor) -> None:
+    """One DDIM step, in place: x (B, Lx, latent_dim) float32 at timestep
+    ``tb`` (B,) becomes the latents at the next timestep. ``ab_t`` and
+    ``ab_n`` are the 0-dim float32 alpha-bars of this timestep and the next.
+    Both paths of ``ddim_denoise`` run this function."""
+    eps = dit(x, tb, cond)
+    x0 = (x - torch.sqrt(1 - ab_t) * eps) / torch.sqrt(ab_t)
+    torch.add(torch.sqrt(ab_n) * x0, torch.sqrt(1 - ab_n) * eps, out=x)
+
+
+@dataclasses.dataclass
+class _Captured:
+    """One shape's captured step: the static buffers the graph reads and
+    writes, and each kernel op's launches in one replay."""
+    x: torch.Tensor
+    cond: torch.Tensor
+    tb: torch.Tensor
+    ab_t: torch.Tensor
+    ab_n: torch.Tensor
+    graph: Any
+    launches: Dict[str, int]
+
+
+class StepGraphs:
+    """A DiT's DDIM step as CUDA graphs: one per (B, Lx, Lc) and condition
+    dtype, captured the first time that shape is denoised, all in one memory
+    pool (replays never overlap). The graphs read the parameters where they
+    were at capture (``ptrs``). Held by the DiT (``DiT.step_graphs``), so
+    they and their pool go with it."""
+
+    def __init__(self, ptrs: tuple):
+        self.ptrs = ptrs
+        self.pool = torch.cuda.graph_pool_handle()
+        self.shapes: Dict[tuple, _Captured] = {}
+
+    def get(self, dit: DiT, noise: torch.Tensor, cond: torch.Tensor) -> _Captured:
+        key = (tuple(noise.shape), tuple(cond.shape), cond.dtype)
+        cap = self.shapes.get(key)
+        if cap is None:
+            cap = self.shapes[key] = self._capture(dit, noise, cond)
+        return cap
+
+    def _capture(self, dit: DiT, noise: torch.Tensor, cond: torch.Tensor) -> _Captured:
+        dev = noise.device
+        f32 = dict(dtype=torch.float32, device=dev)
+        cap = _Captured(noise.to(torch.float32, copy=True),
+                        cond.clone(memory_format=torch.contiguous_format),
+                        torch.full((noise.shape[0],), 999.0, **f32), torch.full((), 0.5, **f32),
+                        torch.full((), 0.5, **f32), torch.cuda.CUDAGraph(), {})
+        args = (dit, cap.x, cap.tb, cap.cond, cap.ab_t, cap.ab_n)
+        capture = torch.cuda.graph(cap.graph, pool=self.pool, capture_error_mode="thread_local")
+        before = dict(kops.LAUNCHES)
+        # warm-up on the capture stream: first launches and library state outside the capture
+        side = capture.capture_stream
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            ddim_step(*args)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        warm = dict(kops.LAUNCHES)
+        with capture:
+            ddim_step(*args)
+        cap.launches = {k: n - warm[k] for k, n in kops.LAUNCHES.items() if n != warm[k]}
+        kops.LAUNCHES.update(before)
+        return cap
+
+
+def step_graphs(dit: DiT, x: torch.Tensor) -> Optional[StepGraphs]:
+    """The DiT's step graphs where ``x``'s steps can replay them: on a CUDA
+    device, grad off, no kernel counter set (it counts ops as they
+    dispatch, and a replay dispatches none), no capture already under way
+    and no DTensor parameter. Graphs of parameters since moved are dropped.
+    None elsewhere: the steps then run eagerly."""
+    if (not x.is_cuda or torch.is_grad_enabled() or kops.COUNTER is not None
+            or torch.cuda.is_current_stream_capturing()):
+        return None
+    params = list(dit.parameters())
+    if any(spmd.is_dtensor(p) for p in params):
+        return None
+    ptrs = tuple(p.data_ptr() for p in params)
+    if dit.step_graphs is None or dit.step_graphs.ptrs != ptrs:
+        dit.step_graphs = StepGraphs(ptrs)
+    return dit.step_graphs
+
+
 @torch.no_grad()
 def ddim_denoise(dit: DiT, noise: torch.Tensor, cond: torch.Tensor,
                  num_steps: int) -> torch.Tensor:
     """Multi-step denoising loop (the Diffuse stage's runtime body).
 
-    DDIM with a linear alpha-bar schedule; deterministic (eta=0). A traced
-    run records each step as a ``step`` span with its index and timestep.
+    DDIM with a linear alpha-bar schedule; deterministic (eta=0). Each step
+    is ``ddim_step``: on a CUDA device a replay of its graph for the shape
+    (``step_graphs``), elsewhere run eagerly. A traced run records each step
+    as a ``step`` span with its index, its timestep and ``graphed`` (1 for a
+    replay, 0 for an eager step).
     """
     betas = jax_linspace(1e-4, 0.02, 1000)
-    alpha_bar = torch.cumprod(1.0 - betas, dim=0).to(noise.device)
+    alpha_bar = torch.cumprod(1.0 - betas, dim=0)
     ts = ddim_timesteps(num_steps)
-    one = torch.ones((), dtype=torch.float32, device=noise.device)
-    x = noise
-    for i, t in enumerate(ts):
-        t_next = ts[i + 1] if i + 1 < num_steps else -1
+    nexts = ts[1:] + [-1]
+    dev = noise.device
+    graphs = step_graphs(dit, noise)
+    if graphs is not None:
+        ab = alpha_bar.tolist()
+        with torch.cuda.device(dev):
+            cap = graphs.get(dit, noise, cond)
+            cap.x.copy_(noise)
+            cap.cond.copy_(cond)
+            for i, (t, t_next) in enumerate(zip(ts, nexts)):
+                with trace.span("step", device=dev, step=i, t=t, graphed=1):
+                    cap.tb.fill_(float(t))
+                    cap.ab_t.fill_(ab[t])
+                    cap.ab_n.fill_(ab[t_next] if t_next >= 0 else 1.0)
+                    cap.graph.replay()
+                for k, n in cap.launches.items():
+                    kops.LAUNCHES[k] += n
+            # the static latents are overwritten by the next call of this shape
+            return cap.x.clone()
+    alpha_bar = alpha_bar.to(dev)
+    one = torch.ones((), dtype=torch.float32, device=dev)
+    x = noise.to(torch.float32, copy=True)
+    for i, (t, t_next) in enumerate(zip(ts, nexts)):
         ab_t = alpha_bar[t]
         ab_n = alpha_bar[t_next] if t_next >= 0 else one
-        with trace.span("step", device=x.device, step=i, t=t):
-            tb = torch.full((x.shape[0],), float(t), dtype=torch.float32, device=x.device)
-            eps = dit(x, tb, cond)
-            x0 = (x - torch.sqrt(1 - ab_t) * eps) / torch.sqrt(ab_t)
-            x = torch.sqrt(ab_n) * x0 + torch.sqrt(1 - ab_n) * eps
+        with trace.span("step", device=dev, step=i, t=t, graphed=0):
+            tb = torch.full((x.shape[0],), float(t), dtype=torch.float32, device=dev)
+            ddim_step(dit, x, tb, cond, ab_t, ab_n)
     return x
 
 
