@@ -4,7 +4,9 @@
 same-family variant that runs on a CPU in seconds. Counterpart of
 ``repro/configs/__init__.py``, with the same ids: the four diffusion
 pipelines (``sd3``, ``flux``, ``cogvideox``, ``hunyuanvideo``) and the ten
-LLMs of the zoo. ``INPUT_SHAPES`` are the dry-run's four input shapes, with
+LLMs of the zoo; ``get`` also knows the port-only ``hunyuanvideo-t2v``
+(HunyuanVideo's released DiT, which the reference does not have), in
+neither tuple. ``INPUT_SHAPES`` are the dry-run's four input shapes, with
 the reference's lengths, batches and kinds.
 """
 from __future__ import annotations
@@ -33,6 +35,8 @@ _MODULES = {
     "flux": "flux",
     "cogvideox": "cogvideox",
     "hunyuanvideo": "hunyuanvideo",
+    # port-only: HunyuanVideo T2V as released, not in PIPELINE_IDS (no JAX counterpart)
+    "hunyuanvideo-t2v": "hunyuanvideo_t2v",
 }
 
 

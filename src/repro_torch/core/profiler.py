@@ -152,7 +152,7 @@ class Profiler:
     def _stage_infos_cached(cfg: pipe_lib.PipelineConfig):
         meta = torch.device("meta")
         enc = transformer.Transformer(cfg.encoder, meta)
-        dit = diffusion.DiT(cfg.dit, meta)
+        dit = pipe_lib.dit_class(cfg.dit)(cfg.dit, meta)
         dec = diffusion.Decoder(cfg.decoder, meta)
 
         def mk(module, nl, dm):

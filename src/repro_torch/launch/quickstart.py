@@ -10,10 +10,12 @@ device with every stage timed.
   PYTHONPATH=src python -m repro_torch.launch.quickstart --pipeline cogvideox --heavy 720x10 \\
       --num-steps 1
 
-``--pipeline`` is one of sd3 (the default), flux, cogvideox and hunyuanvideo.
-Without ``--heavy`` it serves the pipeline's REQUESTS classes; ``--heavy``
-serves classes of HEAVY, and ``--num-steps`` cuts every DDIM loop (the
-records then carry the steps, and the Diffuse prediction is scaled to them).
+``--pipeline`` is one of sd3 (the default), flux, cogvideox and hunyuanvideo,
+or the port-only hunyuanvideo-t2v (HunyuanVideo's released DiT; 540 px x
+1 s, no HEAVY classes). Without ``--heavy`` it serves the pipeline's
+REQUESTS classes; ``--heavy`` serves classes of HEAVY, and ``--num-steps``
+cuts every DDIM loop (the records then carry the steps, and the Diffuse
+prediction is scaled to them).
 """
 from __future__ import annotations
 
@@ -42,6 +44,7 @@ REQUESTS = {
     "flux": ((128, 0.0), (256, 0.0), (512, 0.0), (1024, 0.0)),
     "cogvideox": ((480, 2.0),),
     "hunyuanvideo": ((540, 1.0),),
+    "hunyuanvideo-t2v": ((540, 1.0),),      # port-only, outside Table 5
 }
 HEAVY = {
     "sd3": (),
@@ -86,7 +89,7 @@ def warm(pipe: pl.Pipeline, requests: Sequence[Request]) -> None:
     once, untimed, with one denoising step, so that the first calls at each
     shape (library plan choice, allocator growth) fall outside the stage
     times ``serve`` reports."""
-    dev = pipe.dit.x_in.device
+    dev = pipe.dit.x_out.device
     gen = _device.generator(dev, 0)
     for res, sec, cond_len in dict.fromkeys((r.resolution, r.seconds, r.cond_len)
                                             for r in requests):
@@ -161,11 +164,14 @@ def _serve(cfg: pl.PipelineConfig, requests: Sequence[Request], dev: torch.devic
                          cfg.dit.latent_dim)
                 noise = torch.randn(shape, dtype=torch.float32, device=dev,
                                     generator=_device.generator(dev, seed + 1 + index[req.rid]))
+                # only a DiT that reads the grid is handed it: the uniform DiT's Diffuse keeps
+                # its former call, so wrappers of pl.diffuse with that signature still serve it
+                at = {"grid": grid} if pipe.dit.reads_grid else {}
                 timers = {s: _device.StageTimer(dev, span=STAGE_SPANS[s]) for s in STAGES}
                 with timers["E"]:
                     cond = pl.encode(pipe, toks)
                 with timers["D"]:
-                    lat = pl.diffuse(pipe, cond, shape, num_steps=num_steps, noise=noise)
+                    lat = pl.diffuse(pipe, cond, shape, num_steps=num_steps, noise=noise, **at)
                 with timers["C"]:
                     out = pl.decode(pipe, lat, grid)
                 with trace.span("sync"):
@@ -196,7 +202,7 @@ def _serve(cfg: pl.PipelineConfig, requests: Sequence[Request], dev: torch.devic
 def heavy_classes(pipeline: str, spec: str) -> tuple:
     """The HEAVY classes ``spec`` names: ``all``, or a comma list of RES or
     RESxSEC (``720x10``), each of which must be one of HEAVY[pipeline]."""
-    table = HEAVY[pipeline]
+    table = HEAVY.get(pipeline, ())
     if spec == "all":
         return table
     out = []
@@ -213,7 +219,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     import repro_torch.configs as C
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--pipeline", default="sd3", choices=list(C.PIPELINE_IDS))
+    ap.add_argument("--pipeline", default="sd3", choices=list(REQUESTS))
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     ap.add_argument("--smoke", action="store_true", help="the reduced same-family pipeline")
     ap.add_argument("--heavy", default=None, metavar="RES[xSEC],...",

@@ -80,6 +80,7 @@ class ModelConfig:
     norm_eps: float = 1e-6
     dtype: Any = torch.bfloat16
     tie_embeddings: bool = False
+    final_norm: bool = True          # False: an encoder hands on its last layer's states
     embed_scale: bool = False        # multiply embeddings by sqrt(d_model) (gemma)
     remat: bool = True               # recompute each layer in the training pass's backward
     attn_block_threshold: int = 4096  # CPU prefill, training: online-softmax blocked attention

@@ -10,9 +10,10 @@ public functions and runs its convolutions as plain ``F.conv2d``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -38,6 +39,16 @@ class DiTConfig:
     dtype: Any = torch.bfloat16
     norm_eps: float = 1e-6
     source: str = ""
+    # HunyuanVideo's block form (``models/mmdit.py``); the defaults keep the uniform DiT
+    double_layers: int = 0        # of ``num_layers``, how many lead as dual-stream blocks
+    rope_axes: Tuple[int, ...] = ()   # head-dim split of 3D RoPE over (t, h, w)
+    rope_theta: float = 256.0
+    refiner_layers: int = 0       # token-refiner blocks over the text states
+    guidance: float = 0.0         # embedded guidance scale (0: no guidance input)
+
+    def __post_init__(self):
+        # a configuration file gives tuples as lists
+        object.__setattr__(self, "rope_axes", tuple(self.rope_axes))
 
 
 class DiTLayer(nn.Module):
@@ -99,6 +110,8 @@ def timestep_embedding(t: torch.Tensor, dim: int) -> torch.Tensor:
 
 
 class DiT(nn.Module):
+    reads_grid = False      # 1D positions: a step is the same on every grid of its L
+
     def __init__(self, cfg: DiTConfig, device=None):
         super().__init__()
         d, dt = cfg.d_model, cfg.dtype
@@ -157,6 +170,18 @@ class DiT(nn.Module):
         x = _adaln(x, fmod[:, 0], fmod[:, 1], cfg.norm_eps)
         return (x[:, lc:, :] @ self.x_out).float()
 
+    def grid_inputs(self, grid=None, device=None) -> tuple:
+        """What a step reads besides its latents for the latent grid: nothing."""
+        return ()
+
+    def step_parts(self, x: torch.Tensor, tb: torch.Tensor, cond: torch.Tensor,
+                   ab_t: torch.Tensor, ab_n: torch.Tensor, extra: tuple, carry: dict
+                   ) -> List["Part"]:
+        """A DDIM step (``ddim_step``) as one part with no span."""
+        def whole():
+            ddim_update(x, self(x, tb, cond), ab_t, ab_n)
+        return [Part(None, {}, whole)]
+
 
 def jax_linspace(start: float, stop: float, num: int) -> torch.Tensor:
     """float32 ``linspace`` with the reference's arithmetic,
@@ -181,74 +206,125 @@ def ddim_timesteps(num_steps: int) -> list:
     return jax_linspace(999, 0, num_steps).to(torch.int32).tolist()
 
 
-def ddim_step(dit: DiT, x: torch.Tensor, tb: torch.Tensor, cond: torch.Tensor,
-              ab_t: torch.Tensor, ab_n: torch.Tensor) -> None:
-    """One DDIM step, in place: x (B, Lx, latent_dim) float32 at timestep
-    ``tb`` (B,) becomes the latents at the next timestep. ``ab_t`` and
-    ``ab_n`` are the 0-dim float32 alpha-bars of this timestep and the next.
-    Both paths of ``ddim_denoise`` run this function."""
-    eps = dit(x, tb, cond)
+class Part(NamedTuple):
+    """One part of a DDIM step: the span a traced step records around it
+    (None: none), the span's attributes, and the work."""
+    span: Optional[str]
+    attrs: Dict[str, Any]
+    run: Callable[[], None]
+
+
+def ddim_update(x: torch.Tensor, eps: torch.Tensor, ab_t: torch.Tensor,
+                ab_n: torch.Tensor) -> None:
+    """x at timestep t, in place, to the latents at the next timestep, given
+    the predicted noise ``eps`` and the 0-dim alpha-bars of both."""
     x0 = (x - torch.sqrt(1 - ab_t) * eps) / torch.sqrt(ab_t)
     torch.add(torch.sqrt(ab_n) * x0, torch.sqrt(1 - ab_n) * eps, out=x)
 
 
+def ddim_step(dit: nn.Module, x: torch.Tensor, tb: torch.Tensor, cond: torch.Tensor,
+              ab_t: torch.Tensor, ab_n: torch.Tensor, extra: tuple = ()) -> None:
+    """One DDIM step, in place: x (B, Lx, latent_dim) float32 at timestep
+    ``tb`` (B,) becomes the latents at the next timestep. ``ab_t`` and
+    ``ab_n`` are the 0-dim float32 alpha-bars of this timestep and the next;
+    ``extra`` the DiT's ``grid_inputs``. The step runs in the DiT's
+    ``step_parts``, each named part inside a span of its own (recorded only
+    while tracing). A card replays the same parts as graphs."""
+    for part in dit.step_parts(x, tb, cond, ab_t, ab_n, extra, {}):
+        with _part_span(part.span, part.attrs, x.device):
+            part.run()
+
+
+def _part_span(span: Optional[str], attrs: Dict[str, Any], dev: torch.device):
+    return (trace.span(span, device=dev, **attrs) if span is not None
+            else contextlib.nullcontext())
+
+
 @dataclasses.dataclass
 class _Captured:
-    """One shape's captured step: the static buffers the graph reads and
-    writes, and each kernel op's launches in one replay."""
+    """One shape's captured step: the static buffers the graphs read and
+    write (``carry``: what one part hands the next), each part's span and
+    attributes with its graph, and each kernel op's launches in one replay.
+    It holds no reference to the DiT, which holds it."""
     x: torch.Tensor
     cond: torch.Tensor
     tb: torch.Tensor
     ab_t: torch.Tensor
     ab_n: torch.Tensor
-    graph: Any
+    extra: tuple
+    carry: dict
+    spans: List[Tuple[Optional[str], Dict[str, Any]]]
+    graphs: List[Any]
     launches: Dict[str, int]
 
 
+def graph_key(dit: nn.Module, noise: torch.Tensor, cond: torch.Tensor, grid=None) -> tuple:
+    """What a captured step depends on: the latents' and the condition's
+    shapes, the condition's dtype, and the latent grid where the DiT reads
+    it (``reads_grid``). The uniform DiT's key has no grid, so one graph
+    serves a shape whether or not the caller names its grid."""
+    return (tuple(noise.shape), tuple(cond.shape), cond.dtype,
+            tuple(grid) if dit.reads_grid and grid is not None else None)
+
+
 class StepGraphs:
-    """A DiT's DDIM step as CUDA graphs: one per (B, Lx, Lc) and condition
-    dtype, captured the first time that shape is denoised, all in one memory
-    pool (replays never overlap). The graphs read the parameters where they
-    were at capture (``ptrs``). Held by the DiT (``DiT.step_graphs``), so
-    they and their pool go with it."""
+    """A DiT's DDIM step as CUDA graphs, one a part of the step
+    (``step_parts``): captured the first time a ``graph_key`` is denoised,
+    all in one memory pool (replays never overlap). The graphs read the
+    parameters where they were at capture (``ptrs``). Held by the DiT
+    (``DiT.step_graphs``), so they and their pool go with it."""
 
     def __init__(self, ptrs: tuple):
         self.ptrs = ptrs
         self.pool = torch.cuda.graph_pool_handle()
+        self.stream = None           # the captures' side stream, made at the first capture
         self.shapes: Dict[tuple, _Captured] = {}
 
-    def get(self, dit: DiT, noise: torch.Tensor, cond: torch.Tensor) -> _Captured:
-        key = (tuple(noise.shape), tuple(cond.shape), cond.dtype)
+    def get(self, dit: nn.Module, noise: torch.Tensor, cond: torch.Tensor,
+            grid=None) -> _Captured:
+        key = graph_key(dit, noise, cond, grid)
         cap = self.shapes.get(key)
         if cap is None:
-            cap = self.shapes[key] = self._capture(dit, noise, cond)
+            cap = self.shapes[key] = self._capture(dit, noise, cond, grid)
         return cap
 
-    def _capture(self, dit: DiT, noise: torch.Tensor, cond: torch.Tensor) -> _Captured:
+    def _capture(self, dit: nn.Module, noise: torch.Tensor, cond: torch.Tensor,
+                 grid) -> _Captured:
         dev = noise.device
         f32 = dict(dtype=torch.float32, device=dev)
-        cap = _Captured(noise.to(torch.float32, copy=True),
-                        cond.clone(memory_format=torch.contiguous_format),
-                        torch.full((noise.shape[0],), 999.0, **f32), torch.full((), 0.5, **f32),
-                        torch.full((), 0.5, **f32), torch.cuda.CUDAGraph(), {})
-        args = (dit, cap.x, cap.tb, cap.cond, cap.ab_t, cap.ab_n)
-        capture = torch.cuda.graph(cap.graph, pool=self.pool, capture_error_mode="thread_local")
+        x = noise.to(torch.float32, copy=True)
+        tb = torch.full((noise.shape[0],), 999.0, **f32)
+        ab_t, ab_n = torch.full((), 0.5, **f32), torch.full((), 0.5, **f32)
+        cond = cond.clone(memory_format=torch.contiguous_format)
+        # the grid's inputs are static buffers, made once outside the graphs
+        extra = dit.grid_inputs(grid, dev)
+        carry: dict = {}
+        parts = dit.step_parts(x, tb, cond, ab_t, ab_n, extra, carry)
+        cap = _Captured(x, cond, tb, ab_t, ab_n, extra, carry,
+                        [(p.span, p.attrs) for p in parts], [], {})
+        if self.stream is None:
+            self.stream = torch.cuda.Stream(dev)
+        side = self.stream
         before = dict(kops.LAUNCHES)
         # warm-up on the capture stream: first launches and library state outside the capture
-        side = capture.capture_stream
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
-            ddim_step(*args)
+            for part in parts:
+                part.run()
         torch.cuda.current_stream(dev).wait_stream(side)
         warm = dict(kops.LAUNCHES)
-        with capture:
-            ddim_step(*args)
+        for part in parts:
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, pool=self.pool, stream=side,
+                                  capture_error_mode="thread_local"):
+                part.run()
+            cap.graphs.append(graph)
         cap.launches = {k: n - warm[k] for k, n in kops.LAUNCHES.items() if n != warm[k]}
         kops.LAUNCHES.update(before)
         return cap
 
 
-def step_graphs(dit: DiT, x: torch.Tensor) -> Optional[StepGraphs]:
+def step_graphs(dit: nn.Module, x: torch.Tensor) -> Optional[StepGraphs]:
     """The DiT's step graphs where ``x``'s steps can replay them: on a CUDA
     device, grad off, no kernel counter set (it counts ops as they
     dispatch, and a replay dispatches none), no capture already under way
@@ -267,15 +343,18 @@ def step_graphs(dit: DiT, x: torch.Tensor) -> Optional[StepGraphs]:
 
 
 @torch.no_grad()
-def ddim_denoise(dit: DiT, noise: torch.Tensor, cond: torch.Tensor,
-                 num_steps: int) -> torch.Tensor:
+def ddim_denoise(dit: nn.Module, noise: torch.Tensor, cond: torch.Tensor,
+                 num_steps: int, grid=None) -> torch.Tensor:
     """Multi-step denoising loop (the Diffuse stage's runtime body).
 
-    DDIM with a linear alpha-bar schedule; deterministic (eta=0). Each step
-    is ``ddim_step``: on a CUDA device a replay of its graph for the shape
-    (``step_graphs``), elsewhere run eagerly. A traced run records each step
-    as a ``step`` span with its index, its timestep and ``graphed`` (1 for a
-    replay, 0 for an eager step).
+    DDIM with a linear alpha-bar schedule; deterministic (eta=0). ``grid``:
+    the latent grid (f, h, w) of the noise's tokens, which a DiT that
+    ``reads_grid`` reads (its RoPE). Each step is ``ddim_step``: on a CUDA
+    device a replay of its graphs for the ``graph_key`` (``step_graphs``),
+    elsewhere run eagerly. A traced run records each step as a ``step``
+    span with its index, its timestep and ``graphed`` (1 for a replay, 0
+    for an eager step), and inside it each named part of the step
+    (``step_parts``) as a span of its own.
     """
     betas = jax_linspace(1e-4, 0.02, 1000)
     alpha_bar = torch.cumprod(1.0 - betas, dim=0)
@@ -286,7 +365,7 @@ def ddim_denoise(dit: DiT, noise: torch.Tensor, cond: torch.Tensor,
     if graphs is not None:
         ab = alpha_bar.tolist()
         with torch.cuda.device(dev):
-            cap = graphs.get(dit, noise, cond)
+            cap = graphs.get(dit, noise, cond, grid)
             cap.x.copy_(noise)
             cap.cond.copy_(cond)
             for i, (t, t_next) in enumerate(zip(ts, nexts)):
@@ -294,20 +373,23 @@ def ddim_denoise(dit: DiT, noise: torch.Tensor, cond: torch.Tensor,
                     cap.tb.fill_(float(t))
                     cap.ab_t.fill_(ab[t])
                     cap.ab_n.fill_(ab[t_next] if t_next >= 0 else 1.0)
-                    cap.graph.replay()
+                    for (span, attrs), graph in zip(cap.spans, cap.graphs):
+                        with _part_span(span, attrs, dev):
+                            graph.replay()
                 for k, n in cap.launches.items():
                     kops.LAUNCHES[k] += n
             # the static latents are overwritten by the next call of this shape
             return cap.x.clone()
     alpha_bar = alpha_bar.to(dev)
     one = torch.ones((), dtype=torch.float32, device=dev)
+    extra = dit.grid_inputs(grid, dev)
     x = noise.to(torch.float32, copy=True)
     for i, (t, t_next) in enumerate(zip(ts, nexts)):
         ab_t = alpha_bar[t]
         ab_n = alpha_bar[t_next] if t_next >= 0 else one
         with trace.span("step", device=dev, step=i, t=t, graphed=0):
             tb = torch.full((x.shape[0],), float(t), dtype=torch.float32, device=dev)
-            ddim_step(dit, x, tb, cond, ab_t, ab_n)
+            ddim_step(dit, x, tb, cond, ab_t, ab_n, extra)
     return x
 
 

@@ -15,7 +15,7 @@ import torch
 from torch import nn
 
 from repro_torch import device as _device
-from repro_torch.models import diffusion, transformer
+from repro_torch.models import diffusion, mmdit, transformer
 from repro_torch.models.common import ModelConfig
 
 
@@ -42,12 +42,19 @@ class PipelineConfig:
         return f * h * w
 
 
+def dit_class(cfg: diffusion.DiTConfig) -> type:
+    """The DiT a configuration runs: HunyuanVideo's dual- and single-stream
+    blocks (``mmdit.MMDiT``) where it has dual-stream blocks, else the
+    reference's uniform joint block (``diffusion.DiT``)."""
+    return mmdit.MMDiT if cfg.double_layers else diffusion.DiT
+
+
 class Pipeline(nn.Module):
     def __init__(self, cfg: PipelineConfig, device=None):
         super().__init__()
         self.cfg = cfg
         self.encoder = transformer.Transformer(cfg.encoder, device)
-        self.dit = diffusion.DiT(cfg.dit, device)
+        self.dit = dit_class(cfg.dit)(cfg.dit, device)
         self.decoder = diffusion.Decoder(cfg.decoder, device)
 
 
@@ -67,27 +74,30 @@ def build(cfg: PipelineConfig, device=None, seed: int = 0) -> Pipeline:
 
 @torch.no_grad()
 def encode(pipe: Pipeline, tokens: torch.Tensor) -> torch.Tensor:
-    """Stage E: prompt tokens (B, Lc) -> condition embeddings (B, Lc, D_enc)."""
+    """Stage E: prompt tokens (B, Lc) -> condition embeddings (B, Lc, D_enc):
+    the last layer's states, through the final norm unless the encoder's
+    config has none (``final_norm``)."""
     enc = pipe.encoder
     x = enc.embed_tokens(tokens)
     x = enc.run_layers(x)
-    return enc.apply_final_norm(x)
+    return enc.apply_final_norm(x) if enc.cfg.final_norm else x
 
 
 @torch.no_grad()
 def diffuse(pipe: Pipeline, cond: torch.Tensor, latent_shape: Tuple[int, ...],
             generator: Optional[torch.Generator] = None,
-            num_steps: Optional[int] = None, noise: Optional[torch.Tensor] = None
-            ) -> torch.Tensor:
+            num_steps: Optional[int] = None, noise: Optional[torch.Tensor] = None,
+            grid: Optional[Tuple[int, int, int]] = None) -> torch.Tensor:
     """Stage D: T-step denoising from Gaussian noise in latent space.
 
     The noise is drawn from ``generator`` on the condition's device, unless
-    it is passed in."""
+    it is passed in. ``grid``: the latent grid (f, h, w) the tokens fill
+    (``PipelineConfig.latent_grid``), which a DiT with 3D RoPE reads."""
     steps = num_steps or pipe.cfg.num_steps
     if noise is None:
         noise = torch.randn(tuple(latent_shape), dtype=torch.float32, device=cond.device,
                             generator=generator)
-    return diffusion.ddim_denoise(pipe.dit, noise, cond, steps)
+    return diffusion.ddim_denoise(pipe.dit, noise, cond, steps, grid)
 
 
 @torch.no_grad()
@@ -115,7 +125,7 @@ def generate(pipe: Pipeline, tokens: torch.Tensor, resolution: int, seconds: flo
     grid = cfg.latent_grid(resolution, seconds)
     cond = encode(pipe, tokens)
     shape = (tokens.shape[0], cfg.latent_tokens(resolution, seconds), cfg.dit.latent_dim)
-    latents = diffuse(pipe, cond, shape, generator, num_steps)
+    latents = diffuse(pipe, cond, shape, generator, num_steps, grid=grid)
     return decode(pipe, latents, grid)
 
 

@@ -240,8 +240,10 @@ def test_graphed_denoise_equals_eager_on_card(cuda, b, lx):
     assert ops.LAUNCHES == eager_launches == {
         "flash_attention": cfg.num_layers * STEPS,
         "adaln_rmsnorm": (2 * cfg.num_layers + 1) * STEPS, "ssm_scan": 0}
+    # no grid given: the uniform DiT reads none, and the key says so
     assert list(dit.step_graphs.shapes) == [((b, lx, cfg.latent_dim),
-                                             (b, COND_LEN, cfg.cond_dim), cfg.dtype)]
+                                             (b, COND_LEN, cfg.cond_dim), cfg.dtype, None)]
+    assert [len(cap.graphs) for cap in dit.step_graphs.shapes.values()] == [1]
 
 
 @pytest.mark.gpu
@@ -271,7 +273,7 @@ def test_a_new_shape_captures_one_graph_into_the_shared_pool(cuda):
         diffusion.ddim_denoise(dit, noise, cond, 2)
     graphs = dit.step_graphs
     assert len(graphs.shapes) == 2
-    assert {cap.graph.pool() for cap in graphs.shapes.values()} == {graphs.pool}
+    assert {g.pool() for cap in graphs.shapes.values() for g in cap.graphs} == {graphs.pool}
 
 
 @pytest.mark.gpu
