@@ -87,8 +87,9 @@ def predicted_ms(prof: Profiler, req: Request, stage: str, chips: int,
 def warm(pipe: pl.Pipeline, requests: Sequence[Request]) -> None:
     """Run each (resolution, seconds, prompt length) class of ``requests``
     once, untimed, with one denoising step, so that the first calls at each
-    shape (library plan choice, allocator growth) fall outside the stage
-    times ``serve`` reports."""
+    shape (library plan choice, allocator growth, on a card the capture of
+    its Encode and DDIM step graphs) fall outside the stage times ``serve``
+    reports."""
     dev = pipe.dit.x_out.device
     gen = _device.generator(dev, 0)
     for res, sec, cond_len in dict.fromkeys((r.resolution, r.seconds, r.cond_len)

@@ -21,7 +21,7 @@ from torch import nn
 
 from repro_torch import trace
 from repro_torch.kernels import ops as kops
-from repro_torch.models import common
+from repro_torch.models import common, graphs
 from repro_torch.models.common import param
 from repro_torch.sharding import spmd
 
@@ -267,18 +267,12 @@ def graph_key(dit: nn.Module, noise: torch.Tensor, cond: torch.Tensor, grid=None
             tuple(grid) if dit.reads_grid and grid is not None else None)
 
 
-class StepGraphs:
+class StepGraphs(graphs.Graphs):
     """A DiT's DDIM step as CUDA graphs, one a part of the step
     (``step_parts``): captured the first time a ``graph_key`` is denoised,
     all in one memory pool (replays never overlap). The graphs read the
     parameters where they were at capture (``ptrs``). Held by the DiT
     (``DiT.step_graphs``), so they and their pool go with it."""
-
-    def __init__(self, ptrs: tuple):
-        self.ptrs = ptrs
-        self.pool = torch.cuda.graph_pool_handle()
-        self.stream = None           # the captures' side stream, made at the first capture
-        self.shapes: Dict[tuple, _Captured] = {}
 
     def get(self, dit: nn.Module, noise: torch.Tensor, cond: torch.Tensor,
             grid=None) -> _Captured:
@@ -300,43 +294,18 @@ class StepGraphs:
         extra = dit.grid_inputs(grid, dev)
         carry: dict = {}
         parts = dit.step_parts(x, tb, cond, ab_t, ab_n, extra, carry)
-        cap = _Captured(x, cond, tb, ab_t, ab_n, extra, carry,
-                        [(p.span, p.attrs) for p in parts], [], {})
-        if self.stream is None:
-            self.stream = torch.cuda.Stream(dev)
-        side = self.stream
-        before = dict(kops.LAUNCHES)
-        # warm-up on the capture stream: first launches and library state outside the capture
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            for part in parts:
-                part.run()
-        torch.cuda.current_stream(dev).wait_stream(side)
-        warm = dict(kops.LAUNCHES)
-        for part in parts:
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph, pool=self.pool, stream=side,
-                                  capture_error_mode="thread_local"):
-                part.run()
-            cap.graphs.append(graph)
-        cap.launches = {k: n - warm[k] for k, n in kops.LAUNCHES.items() if n != warm[k]}
-        kops.LAUNCHES.update(before)
-        return cap
+        made, launches = self.capture(dev, [p.run for p in parts])
+        return _Captured(x, cond, tb, ab_t, ab_n, extra, carry,
+                         [(p.span, p.attrs) for p in parts], made, launches)
 
 
 def step_graphs(dit: nn.Module, x: torch.Tensor) -> Optional[StepGraphs]:
-    """The DiT's step graphs where ``x``'s steps can replay them: on a CUDA
-    device, grad off, no kernel counter set (it counts ops as they
-    dispatch, and a replay dispatches none), no capture already under way
-    and no DTensor parameter. Graphs of parameters since moved are dropped.
+    """The DiT's step graphs where ``x``'s steps can replay them
+    (``graphs.replay_ptrs``); graphs of parameters since moved are dropped.
     None elsewhere: the steps then run eagerly."""
-    if (not x.is_cuda or torch.is_grad_enabled() or kops.COUNTER is not None
-            or torch.cuda.is_current_stream_capturing()):
+    ptrs = graphs.replay_ptrs(dit, x)
+    if ptrs is None:
         return None
-    params = list(dit.parameters())
-    if any(spmd.is_dtensor(p) for p in params):
-        return None
-    ptrs = tuple(p.data_ptr() for p in params)
     if dit.step_graphs is None or dit.step_graphs.ptrs != ptrs:
         dit.step_graphs = StepGraphs(ptrs)
     return dit.step_graphs
@@ -361,11 +330,11 @@ def ddim_denoise(dit: nn.Module, noise: torch.Tensor, cond: torch.Tensor,
     ts = ddim_timesteps(num_steps)
     nexts = ts[1:] + [-1]
     dev = noise.device
-    graphs = step_graphs(dit, noise)
-    if graphs is not None:
+    held = step_graphs(dit, noise)
+    if held is not None:
         ab = alpha_bar.tolist()
         with torch.cuda.device(dev):
-            cap = graphs.get(dit, noise, cond, grid)
+            cap = held.get(dit, noise, cond, grid)
             cap.x.copy_(noise)
             cap.cond.copy_(cond)
             for i, (t, t_next) in enumerate(zip(ts, nexts)):

@@ -9,13 +9,15 @@ abstraction. Resolution/duration -> latent token geometry follows the
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
 
 from repro_torch import device as _device
-from repro_torch.models import diffusion, mmdit, transformer
+from repro_torch import trace
+from repro_torch.kernels import ops as kops
+from repro_torch.models import diffusion, graphs, mmdit, transformer
 from repro_torch.models.common import ModelConfig
 
 
@@ -56,6 +58,7 @@ class Pipeline(nn.Module):
         self.encoder = transformer.Transformer(cfg.encoder, device)
         self.dit = dit_class(cfg.dit)(cfg.dit, device)
         self.decoder = diffusion.Decoder(cfg.decoder, device)
+        self.encode_graphs: Optional[EncodeGraphs] = None    # made by ``encode_graphs`` on a card
 
 
 def build(cfg: PipelineConfig, device=None, seed: int = 0) -> Pipeline:
@@ -72,15 +75,79 @@ def build(cfg: PipelineConfig, device=None, seed: int = 0) -> Pipeline:
 
 # --- Stage apply functions (each independently dispatchable) ---------------
 
+def _encode(enc: transformer.Transformer, tokens: torch.Tensor) -> torch.Tensor:
+    """The encoder's pass: the last layer's states, through the final norm
+    unless the encoder's config has none (``final_norm``)."""
+    x = enc.embed_tokens(tokens)
+    x = enc.run_layers(x)
+    return enc.apply_final_norm(x) if enc.cfg.final_norm else x
+
+
+@dataclasses.dataclass
+class _Encoded:
+    """One prompt shape's captured Encode: the static tokens it reads, the
+    static states it writes, its graph, and each kernel op's launches in
+    one replay. It holds no reference to the encoder."""
+    tokens: torch.Tensor
+    out: torch.Tensor
+    graph: torch.cuda.CUDAGraph
+    launches: Dict[str, int]
+
+
+class EncodeGraphs(graphs.Graphs):
+    """Encode as one CUDA graph a prompt shape (the tokens' shape and
+    dtype), captured the first time that shape is encoded, all in one
+    memory pool. The graphs read the encoder's parameters where they were
+    at capture (``ptrs``). Held by the pipeline (``Pipeline.encode_graphs``),
+    not by the encoder, which LLM serving shares."""
+
+    def get(self, enc: transformer.Transformer, tokens: torch.Tensor) -> _Encoded:
+        key = (tuple(tokens.shape), tokens.dtype)
+        cap = self.shapes.get(key)
+        if cap is None:
+            static = tokens.clone(memory_format=torch.contiguous_format)
+            box = {}
+
+            def run():
+                box["out"] = _encode(enc, static)
+            (graph,), launches = self.capture(tokens.device, [run])
+            cap = self.shapes[key] = _Encoded(static, box["out"], graph, launches)
+        return cap
+
+
+def encode_graphs(pipe: Pipeline, tokens: torch.Tensor) -> Optional[EncodeGraphs]:
+    """The pipeline's Encode graphs where ``tokens`` can replay them
+    (``graphs.replay_ptrs`` of the encoder); graphs of parameters since
+    moved are dropped. None elsewhere: Encode then runs eagerly."""
+    ptrs = graphs.replay_ptrs(pipe.encoder, tokens)
+    if ptrs is None:
+        return None
+    if pipe.encode_graphs is None or pipe.encode_graphs.ptrs != ptrs:
+        pipe.encode_graphs = EncodeGraphs(ptrs)
+    return pipe.encode_graphs
+
+
 @torch.no_grad()
 def encode(pipe: Pipeline, tokens: torch.Tensor) -> torch.Tensor:
     """Stage E: prompt tokens (B, Lc) -> condition embeddings (B, Lc, D_enc):
     the last layer's states, through the final norm unless the encoder's
-    config has none (``final_norm``)."""
-    enc = pipe.encoder
-    x = enc.embed_tokens(tokens)
-    x = enc.run_layers(x)
-    return enc.apply_final_norm(x) if enc.cfg.final_norm else x
+    config has none (``final_norm``). On a CUDA device a replay of the
+    prompt shape's graph (``encode_graphs``), elsewhere run eagerly. A
+    traced run records the pass as an ``encoder`` span with ``graphed`` (1
+    for a replay, 0 for an eager pass)."""
+    held = encode_graphs(pipe, tokens)
+    if held is None:
+        with trace.span("encoder", graphed=0):
+            return _encode(pipe.encoder, tokens)
+    with torch.cuda.device(tokens.device):
+        cap = held.get(pipe.encoder, tokens)
+        with trace.span("encoder", graphed=1):
+            cap.tokens.copy_(tokens)
+            cap.graph.replay()
+            for k, n in cap.launches.items():
+                kops.LAUNCHES[k] += n
+            # the static states are overwritten by the next prompt of this shape
+            return cap.out.clone()
 
 
 @torch.no_grad()
